@@ -1,0 +1,22 @@
+"""CKKS FHE scheme in PyTorch, with CUDA kernels on the hot path.
+
+Residues are int32 tensors (every prime is < 2^31); the plain versions of the
+kernels compute in int64 and the kernels read the buffers as uint32_t.
+
+Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``),
+exported lazily so that ``repro_torch.fhe.params`` and friends stay cheap.
+"""
+
+_CONTEXT_EXPORTS = ("FheContext", "ExecPolicy")
+
+
+def __getattr__(name):
+    if name in _CONTEXT_EXPORTS:
+        from . import context
+
+        return getattr(context, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_CONTEXT_EXPORTS))

@@ -1,0 +1,217 @@
+"""Evaluation contexts: the public API of ``repro_torch.fhe``.
+
+``FheContext`` bundles what an evaluation needs:
+
+  * ``CkksParams``  — the cryptographic parameter set,
+  * ``KeySet``      — public/secret/relinearisation keys,
+  * ``ExecPolicy``  — *how* to execute (the key-switch pipeline and the other
+                      knobs of the reference package's policy, with the same
+                      ``policy_key()``),
+  * ``device``      — where every tensor of the evaluation lives.  The default
+                      is "cuda"; without a card that raises, and nothing moves
+                      to the CPU unless the caller passes ``device="cpu"``.
+
+Quick use::
+
+    from repro_torch.fhe import FheContext, ExecPolicy, keys as K, params as P
+
+    p = P.workload_params("matmul")
+    ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0))
+    ct = ctx.encrypt(ctx.encode(x))
+    y = ctx.decrypt_decode(ctx.mul(ct, ct))
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import dispatch
+
+from . import keyswitch, ops
+from .keys import KeySet, SwitchingKey
+from .params import CkksParams
+
+BACKENDS = ("fused", "kernel", "staged", "ref", "auto")
+HOISTING_MODES = ("never", "auto", "always")
+NUMERICS_MODES = ("standard",)
+SCHEMES = ("ckks", "bgv")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecPolicy:
+    """How to execute: every evaluation-shaping knob, in one immutable value.
+
+    The fields and ``policy_key()`` are the reference package's, so a policy
+    names the same configuration in both.  ``dispatch_hook`` is not part of
+    the key (or of equality): observing kernel launches cannot change them.
+    """
+
+    backend: str = "auto"  # kernel pipeline: fused | kernel | staged | ref | auto
+    hoisting: str = "auto"  # rotation key-switch shape: never | auto | always
+    numerics: str = "standard"
+    scheme: str = "ckks"
+    dispatch_hook: Callable[[str], None] | None = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown key-switch backend {self.backend!r}")
+        if self.hoisting not in HOISTING_MODES:
+            raise ValueError(f"unknown hoisting mode {self.hoisting!r}")
+        if self.numerics not in NUMERICS_MODES:
+            raise ValueError(f"unknown numerics mode {self.numerics!r}; available: {NUMERICS_MODES}")
+        if self.scheme not in SCHEMES:
+            raise ValueError(f"unknown scheme {self.scheme!r}; available: {SCHEMES}")
+
+    def policy_key(self) -> tuple[str, str, str, str]:
+        """Hashable identity (scheme, backend, hoisting, numerics); excludes the hook."""
+        return (self.scheme, self.backend, self.hoisting, self.numerics)
+
+    def replace(self, **changes) -> "ExecPolicy":
+        return dataclasses.replace(self, **changes)
+
+
+def _hooked(fn):
+    """Run a context method under the policy's dispatch-counter hook."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        hook = self.policy.dispatch_hook
+        if hook is None:
+            return fn(self, *args, **kwargs)
+        with dispatch.hook_dispatches(hook):
+            return fn(self, *args, **kwargs)
+
+    return wrapper
+
+
+@dataclasses.dataclass(frozen=True)
+class FheContext:
+    """Immutable (params, keys, policy, device) bundle — the context every op runs in."""
+
+    params: CkksParams
+    keys: KeySet | None = None
+    policy: ExecPolicy = ExecPolicy()
+    device: torch.device | str = "cuda"
+
+    def __post_init__(self):
+        if self.params.scheme != "ckks":
+            raise NotImplementedError("BGV is not ported yet (ROADMAP Queue 1 item 7)")
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("FheContext on device 'cuda' needs a CUDA card; pass device='cpu' for the CPU")
+        if self.keys is not None and self.keys.device.type != dev.type:
+            raise ValueError(f"keys live on {self.keys.device}, the context on {dev}")
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "policy", self.policy.replace(scheme=self.params.scheme))
+
+    def with_policy(self, policy: ExecPolicy | None = None, **changes) -> "FheContext":
+        """A context with an overridden policy (same params/keys/device)."""
+        if policy is not None and changes:
+            raise TypeError("pass either a policy or field overrides, not both")
+        new = policy if policy is not None else self.policy.replace(**changes)
+        return dataclasses.replace(self, policy=new)
+
+    def with_keys(self, keys: KeySet) -> "FheContext":
+        return dataclasses.replace(self, keys=keys)
+
+    def policy_key(self) -> tuple[str, str, str, str]:
+        return self.policy.policy_key()
+
+    @property
+    def scheme(self) -> str:
+        return self.policy.scheme
+
+    @property
+    def backend(self) -> str:
+        """Key-switch pipeline choice, passed to the ``keyswitch`` layer."""
+        return self.policy.backend
+
+    @property
+    def pipeline(self) -> str:
+        """The key-switch pipeline this context runs: "fused" or "staged"."""
+        return keyswitch.resolve_pipeline(self.backend, self.device)[0]
+
+    def require_keys(self) -> KeySet:
+        if self.keys is None:
+            raise ValueError("this operation needs a KeySet; build the context with keys= or use ctx.with_keys(...)")
+        return self.keys
+
+    # -- encode / encrypt / decrypt -----------------------------------------
+
+    @_hooked
+    def encode(self, z, level: int | None = None, scale: float | None = None):
+        return ops._encode(self, z, level, scale)
+
+    @_hooked
+    def encode_const(self, c, level: int, scale: float):
+        return ops._encode_const(self, c, level, scale)
+
+    @_hooked
+    def decode(self, pt):
+        return ops._decode(self, pt)
+
+    @_hooked
+    def encrypt(self, pt, seed: int = 17):
+        return ops._encrypt(self, self.require_keys().pk, pt, seed)
+
+    @_hooked
+    def decrypt(self, ct):
+        return ops._decrypt(self, self.require_keys().sk, ct)
+
+    @_hooked
+    def decrypt_decode(self, ct):
+        return ops._decode(self, ops._decrypt(self, self.require_keys().sk, ct))
+
+    # -- additive ops -------------------------------------------------------
+
+    @_hooked
+    def add(self, a, b):
+        return ops._add(self, a, b)
+
+    @_hooked
+    def sub(self, a, b):
+        return ops._sub(self, a, b)
+
+    @_hooked
+    def negate(self, a):
+        return ops._negate(self, a)
+
+    @_hooked
+    def add_plain(self, a, pt):
+        return ops._add_plain(self, a, pt)
+
+    @_hooked
+    def add_const(self, a, c):
+        return ops._add_const(self, a, c)
+
+    def level_drop(self, ct, level: int):
+        return ops.level_drop(ct, level)
+
+    # -- multiplicative ops -------------------------------------------------
+
+    @_hooked
+    def mul_plain(self, a, pt, rescale_after: bool = True):
+        return ops._mul_plain(self, a, pt, rescale_after)
+
+    @_hooked
+    def mul_const(self, a, c, rescale_after: bool = True):
+        return ops._mul_const(self, a, c, rescale_after)
+
+    @_hooked
+    def mul(self, a, b, rlk: SwitchingKey | None = None, rescale_after: bool = True):
+        """Ciphertext-ciphertext multiplication with relinearisation."""
+        rlk = rlk if rlk is not None else self.require_keys().rlk
+        return ops._mul(self, a, b, rlk, rescale_after)
+
+    @_hooked
+    def square(self, a, rlk: SwitchingKey | None = None, rescale_after: bool = True):
+        rlk = rlk if rlk is not None else self.require_keys().rlk
+        return ops._mul(self, a, a, rlk, rescale_after)
+
+    @_hooked
+    def rescale(self, ct):
+        return ops._rescale(self, ct)

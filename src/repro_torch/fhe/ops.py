@@ -1,0 +1,247 @@
+"""CKKS homomorphic operations over eval-domain RNS ciphertexts.
+
+Ciphertexts are pairs of (level+1, N) int32 eval-domain polynomials with a
+tracked floating-point scale (Lattigo-style scale management).  All heavy ops
+go through the kernel wrappers (CUDA on the card, plain PyTorch on the CPU)
+and record trace instructions exactly as the reference package does.  Each op
+is implemented once as a context-consuming function; ``FheContext``'s methods
+are the public API.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.modops import ops as mo
+
+from . import encoder, keyswitch, poly, trace
+from .keys import PublicKey, SecretKey, SwitchingKey
+from .params import CkksParams
+
+
+@dataclasses.dataclass
+class Ciphertext:
+    c0: torch.Tensor  # (level+1, N) int32, eval domain
+    c1: torch.Tensor
+    level: int
+    scale: float
+
+    @property
+    def nbytes(self) -> int:
+        return (self.c0.numel() + self.c1.numel()) * 4
+
+
+@dataclasses.dataclass
+class Plaintext:
+    data: torch.Tensor  # (level+1, N) int32, eval domain
+    level: int
+    scale: float
+
+
+def _qs(params: CkksParams, level: int) -> tuple[int, ...]:
+    return params.q_primes[: level + 1]
+
+
+def _residues_eval(ctx, coeffs: np.ndarray, level: int) -> torch.Tensor:
+    """Host coefficient residues over q_0..q_level → eval domain on the context's device."""
+    return poly.to_eval(poly.residues(coeffs, ctx.device), ctx.params, poly.q_idx(ctx.params, level))
+
+
+# ---------------------------------------------------------------------------
+# encode / encrypt / decrypt
+# ---------------------------------------------------------------------------
+
+
+def _encode(ctx, z, level: int | None = None, scale: float | None = None) -> Plaintext:
+    params = ctx.params
+    level = params.L if level is None else level
+    scale = params.scale if scale is None else scale
+    coeffs = encoder.encode(np.asarray(z), params.n, scale, params.q_primes[: level + 1])
+    return Plaintext(data=_residues_eval(ctx, coeffs, level), level=level, scale=scale)
+
+
+def _encode_const(ctx, c, level: int, scale: float) -> Plaintext:
+    params = ctx.params
+    coeffs = encoder.encode_const(c, params.n, scale, params.q_primes[: level + 1])
+    return Plaintext(data=_residues_eval(ctx, coeffs, level), level=level, scale=scale)
+
+
+def _decode(ctx, pt: Plaintext) -> np.ndarray:
+    params = ctx.params
+    coeffs = poly.to_coeff(pt.data, params, poly.q_idx(params, pt.level))
+    limbs = min(pt.level + 1, 4)
+    host = coeffs[:limbs].cpu().numpy().astype(np.uint32)
+    return encoder.decode(host, params.q_primes[: pt.level + 1], pt.scale, max_limbs=limbs)
+
+
+def _encrypt(ctx, pk: PublicKey, pt: Plaintext, seed: int = 17) -> Ciphertext:
+    params = ctx.params
+    rng = np.random.default_rng(seed)
+    level = pt.level
+    primes = params.q_primes[: level + 1]
+    qs = _qs(params, level)
+    v = _residues_eval(ctx, poly.to_rns_signed(poly.sample_ternary(rng, params.n, params.n // 2), primes), level)
+    e0 = _residues_eval(ctx, poly.to_rns_signed(poly.sample_gaussian(rng, params.n), primes), level)
+    e1 = _residues_eval(ctx, poly.to_rns_signed(poly.sample_gaussian(rng, params.n), primes), level)
+    trace.record("PMULT", params.n, 2 * (level + 1))
+    c0 = mo.pointwise_addmod(
+        mo.pointwise_addmod(mo.pointwise_mulmod(v, pk.b[: level + 1], qs), e0, qs), pt.data, qs
+    )
+    c1 = mo.pointwise_addmod(mo.pointwise_mulmod(v, pk.a[: level + 1], qs), e1, qs)
+    return Ciphertext(c0=c0, c1=c1, level=level, scale=pt.scale)
+
+
+def _decrypt(ctx, sk: SecretKey, ct: Ciphertext) -> Plaintext:
+    params = ctx.params
+    qs = _qs(params, ct.level)
+    trace.record("PMULT", params.n, ct.level + 1)
+    m = mo.pointwise_addmod(ct.c0, mo.pointwise_mulmod(ct.c1, sk.s_eval[: ct.level + 1], qs), qs)
+    return Plaintext(data=m, level=ct.level, scale=ct.scale)
+
+
+# ---------------------------------------------------------------------------
+# additive ops
+# ---------------------------------------------------------------------------
+
+
+def _align(params: CkksParams, a: Ciphertext, b: Ciphertext) -> tuple[Ciphertext, Ciphertext]:
+    """Drop the deeper ciphertext to the shallower level. Scales must match closely."""
+    lv = min(a.level, b.level)
+    a = level_drop(a, lv)
+    b = level_drop(b, lv)
+    assert abs(a.scale / b.scale - 1.0) < 1e-9, f"scale mismatch {a.scale} vs {b.scale}"
+    return a, b
+
+
+def level_drop(ct: Ciphertext, level: int) -> Ciphertext:
+    if level == ct.level:
+        return ct
+    assert level < ct.level
+    return Ciphertext(c0=ct.c0[: level + 1], c1=ct.c1[: level + 1], level=level, scale=ct.scale)
+
+
+def _add(ctx, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    params = ctx.params
+    a, b = _align(params, a, b)
+    qs = _qs(params, a.level)
+    trace.record("PADD", params.n, 2 * (a.level + 1))
+    return Ciphertext(
+        c0=mo.pointwise_addmod(a.c0, b.c0, qs),
+        c1=mo.pointwise_addmod(a.c1, b.c1, qs),
+        level=a.level, scale=a.scale,
+    )
+
+
+def _sub(ctx, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    params = ctx.params
+    a, b = _align(params, a, b)
+    qs = _qs(params, a.level)
+    trace.record("PSUB", params.n, 2 * (a.level + 1))
+    return Ciphertext(
+        c0=mo.pointwise_submod(a.c0, b.c0, qs),
+        c1=mo.pointwise_submod(a.c1, b.c1, qs),
+        level=a.level, scale=a.scale,
+    )
+
+
+def _negate(ctx, a: Ciphertext) -> Ciphertext:
+    params = ctx.params
+    qs = _qs(params, a.level)
+    z = torch.zeros_like(a.c0)
+    trace.record("PSUB", params.n, 2 * (a.level + 1))
+    return Ciphertext(
+        c0=mo.pointwise_submod(z, a.c0, qs),
+        c1=mo.pointwise_submod(z, a.c1, qs),
+        level=a.level, scale=a.scale,
+    )
+
+
+def _add_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    params = ctx.params
+    assert pt.level >= a.level
+    qs = _qs(params, a.level)
+    trace.record("PADD", params.n, a.level + 1)
+    return Ciphertext(
+        c0=mo.pointwise_addmod(a.c0, pt.data[: a.level + 1], qs),
+        c1=a.c1, level=a.level, scale=a.scale,
+    )
+
+
+def _add_const(ctx, a: Ciphertext, c) -> Ciphertext:
+    return _add_plain(ctx, a, _encode_const(ctx, c, a.level, a.scale))
+
+
+# ---------------------------------------------------------------------------
+# multiplicative ops
+# ---------------------------------------------------------------------------
+
+
+def _mul_plain(ctx, a: Ciphertext, pt: Plaintext, rescale_after: bool = True) -> Ciphertext:
+    params = ctx.params
+    assert pt.level >= a.level
+    qs = _qs(params, a.level)
+    trace.record("PMULT", params.n, 2 * (a.level + 1))
+    d = pt.data[: a.level + 1]
+    out = Ciphertext(
+        c0=mo.pointwise_mulmod(a.c0, d, qs),
+        c1=mo.pointwise_mulmod(a.c1, d, qs),
+        level=a.level, scale=a.scale * pt.scale,
+    )
+    return _rescale(ctx, out) if rescale_after else out
+
+
+def _mul_const(ctx, a: Ciphertext, c, rescale_after: bool = True) -> Ciphertext:
+    return _mul_plain(ctx, a, _encode_const(ctx, c, a.level, ctx.params.scale), rescale_after)
+
+
+def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bool = True) -> Ciphertext:
+    """Full homomorphic multiplication with relinearisation (key-switch of d2)."""
+    params = ctx.params
+    lv = min(a.level, b.level)
+    a, b = level_drop(a, lv), level_drop(b, lv)
+    qs = _qs(params, lv)
+    trace.record("PMULT", params.n, 4 * (lv + 1))
+    d0 = mo.pointwise_mulmod(a.c0, b.c0, qs)
+    d2 = mo.pointwise_mulmod(a.c1, b.c1, qs)
+    cross1 = mo.pointwise_mulmod(a.c0, b.c1, qs)
+    cross2 = mo.pointwise_mulmod(a.c1, b.c0, qs)
+    trace.record("PADD", params.n, lv + 1)
+    d1 = mo.pointwise_addmod(cross1, cross2, qs)
+    ks0, ks1 = keyswitch.key_switch(d2, params, lv, rlk, ctx.backend)
+    trace.record("PADD", params.n, 2 * (lv + 1))
+    out = Ciphertext(
+        c0=mo.pointwise_addmod(d0, ks0, qs),
+        c1=mo.pointwise_addmod(d1, ks1, qs),
+        level=lv, scale=a.scale * b.scale,
+    )
+    return _rescale(ctx, out) if rescale_after else out
+
+
+def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
+    """Divide by q_ℓ and drop a level (eval-domain RNS rescale)."""
+    params = ctx.params
+    lv = ct.level
+    assert lv >= 1, "cannot rescale at level 0"
+    q_last = int(params.q_primes[lv])
+    qs_rem = _qs(params, lv - 1)
+    qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
+    q_rem = torch.as_tensor(np.array(qs_rem, np.int64)[:, None], device=ct.c0.device)
+    qinv_t = torch.as_tensor(qinv[:, None], device=ct.c0.device)
+
+    def _one(c):
+        # iNTT the dropped limb, re-embed its (centred) coefficients in every
+        # remaining basis, NTT back, subtract, multiply by q_ℓ^{-1}.
+        last_coeff = poly.to_coeff(c[lv : lv + 1], params, (lv,))
+        v = last_coeff[0].long()
+        centered = torch.where(v > q_last // 2, v + q_rem - q_last, v)
+        rem = (centered % q_rem).int()
+        rem_eval = poly.to_eval(rem, params, poly.q_idx(params, lv - 1))
+        trace.record("PSUB", params.n, lv)
+        diff = mo.pointwise_submod(c[:lv], rem_eval, qs_rem)
+        trace.record("PMULT", params.n, lv)
+        return mo.pointwise_mulmod(diff, qinv_t.expand(diff.shape), qs_rem)
+
+    return Ciphertext(c0=_one(ct.c0), c1=_one(ct.c1), level=lv - 1, scale=ct.scale / q_last)

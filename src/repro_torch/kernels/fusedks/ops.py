@@ -1,0 +1,127 @@
+"""The fused key-switch ops: table building and kernel / plain dispatch.
+
+``key_switch_digits`` covers the per-digit prescale→BConv→NTT→MAC region of a
+hybrid key-switch (everything between the shared iNTT and ModDown);
+``mod_down_digits`` covers the prescale→BConv→NTT→(sub, ×P⁻¹) region of
+ModDown for a batch of accumulators.  On a CUDA tensor each is ONE launch of
+its ``csrc/fusedks.cu`` kernel; on a CPU tensor the plain staged composition
+in ``ref`` runs.  Either way each call records one dispatch.
+
+Tables are cached per (params, level, device): the per-limb prescale
+constants and BConv weights in Montgomery form, and the NTT tables of the
+target basis.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.fhe import modmath as mm
+from repro_torch.fhe import poly, rns
+from repro_torch.fhe.params import CkksParams
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, mont_form, ptr, u32_tensor
+from repro_torch.kernels.ntt import ops as ntt_ops
+
+from . import ref as _ref
+
+FUSED_KS = CudaKernel("fused_ks", "fusedks.cu", "fused_ks_launch",
+                      [P, I, I, I, P, P, P, P, P, I, P, P, P, P, P, I, I, P])
+FUSED_MODDOWN = CudaKernel("fused_moddown", "fusedks.cu", "fused_moddown_launch",
+                           [P, I, I, P, P, P, P, I, P, P, P, P, P, P, P, I, I, P])
+
+
+@functools.lru_cache(maxsize=256)
+def ks_tables(params: CkksParams, level: int, device: torch.device) -> dict:
+    """Constants of ``fused_ks`` at ``level``: source limb s (of the q basis)
+    gets its digit's [B̂_s⁻¹]·R and the row (B̂_s mod c_e)·R over the extended basis."""
+    ext = poly.ext_idx(params, level)
+    ext_primes = poly.primes_for(params, ext)
+    nq = level + 1
+    bh = np.zeros(nq, np.uint64)
+    w = np.zeros((nq, len(ext)), np.uint64)
+    for j in range(params.beta(level)):
+        lo, hi = j * params.alpha, min((j + 1) * params.alpha, nq)
+        src = poly.primes_for(params, tuple(range(lo, hi)))
+        bhat_inv, wj = rns.bconv_tables(src, ext_primes)
+        bh[lo:hi] = mont_form(bhat_inv, src)
+        w[lo:hi] = mont_form(wj.T, ext_primes).T
+    nt = ntt_ops.kernel_tables(poly.plan_for(params, ext), len(ext), device)
+    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"],
+                r2=u32_tensor(mm.mont_constants_array(ext_primes)["r2"], device),
+                bh=u32_tensor(bh, device), w=u32_tensor(w, device))
+
+
+@functools.lru_cache(maxsize=256)
+def moddown_tables(params: CkksParams, level: int, device: torch.device) -> dict:
+    """Constants of ``fused_moddown`` at ``level``: the special block's prescale,
+    its BConv rows to the q basis, [P⁻¹]_{q_e} (all ·R) and the q-basis NTT tables."""
+    p_primes = poly.primes_for(params, poly.p_idx(params))
+    q_primes = poly.primes_for(params, poly.q_idx(params, level))
+    bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
+    P_ = rns.product(p_primes)
+    pinv = np.array([pow(P_ % q, -1, q) for q in q_primes], np.uint64)
+    pc = mm.mont_constants_array(p_primes)
+    nt = ntt_ops.kernel_tables(poly.plan_for(params, poly.q_idx(params, level)), len(q_primes), device)
+    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"],
+                p_q=u32_tensor(pc["q"], device), p_qinv=u32_tensor(pc["qinv_neg"], device),
+                bh=u32_tensor(mont_form(bhat_inv, p_primes), device),
+                w=u32_tensor(mont_form(w.T, q_primes).T, device),
+                pinv=u32_tensor(mont_form(pinv, q_primes), device))
+
+
+def key_switch_digits(d_coeff, ksk_sel, params: CkksParams, level: int):
+    """Σ_j NTT(BConv(d̂_j)) ∘ ksk_j over the extended basis, both components.
+
+    d_coeff: (level+1, N) coefficient-domain limbs; ksk_sel: (β, 2, m, N)
+    eval-domain key limbs restricted to the active extended basis.
+    Returns (acc0, acc1), each (m, N) int32 eval-domain.
+    """
+    dispatch.record("fusedks")
+    if d_coeff.device.type == "cpu":
+        return _ref.key_switch_digits_ref(d_coeff, ksk_sel, params, level)
+    d_coeff, ksk_sel = d_coeff.contiguous(), ksk_sel.contiguous()
+    dev = check_cuda(d_coeff, ksk_sel)
+    n, nq, beta = params.n, level + 1, params.beta(level)
+    m = nq + params.alpha
+    if d_coeff.shape != (nq, n) or ksk_sel.shape != (beta, 2, m, n):
+        raise ValueError(f"fused_ks wants d (nq={nq}, {n}) and ksk ({beta}, 2, {m}, {n}), "
+                         f"got {tuple(d_coeff.shape)} and {tuple(ksk_sel.shape)}")
+    t = ks_tables(params, level, dev)
+    out = torch.empty((m, 2, n), dtype=torch.int32, device=dev)
+    scratch = torch.empty((m, n), dtype=torch.int32, device=dev)  # used where a limb outgrows shared memory
+    FUSED_KS.launch(
+        dev, ptr(d_coeff), nq, params.alpha, beta, ptr(t["q"]), ptr(t["qinv"]), ptr(t["r2"]),
+        ptr(t["bh"]), ptr(t["w"]), m, ptr(t["psi"]), ptr(t["roots"]), ptr(ksk_sel), ptr(out),
+        ptr(scratch), n, n.bit_length() - 1,
+    )
+    return out[:, 0], out[:, 1]
+
+
+def mod_down_digits(p_coeff, q_part, params: CkksParams, level: int):
+    """Fused ModDown tail for a batch of accumulators.
+
+    p_coeff: (C, α, N) coefficient-domain P-block limbs (post-iNTT);
+    q_part: (C, level+1, N) eval-domain q limbs.  Returns (C, level+1, N).
+    """
+    dispatch.record("fused_moddown")
+    if p_coeff.device.type == "cpu":
+        return _ref.mod_down_digits_ref(p_coeff, q_part, params, level)
+    p_coeff, q_part = p_coeff.contiguous(), q_part.contiguous()
+    dev = check_cuda(p_coeff, q_part)
+    n, nq, alpha = params.n, level + 1, params.alpha
+    n_acc = p_coeff.shape[0]
+    if p_coeff.shape != (n_acc, alpha, n) or q_part.shape != (n_acc, nq, n):
+        raise ValueError(f"fused_moddown wants ({n_acc}, {alpha}, {n}) and ({n_acc}, {nq}, {n}), "
+                         f"got {tuple(p_coeff.shape)} and {tuple(q_part.shape)}")
+    t = moddown_tables(params, level, dev)
+    out = torch.empty_like(q_part)
+    FUSED_MODDOWN.launch(
+        dev, ptr(p_coeff), n_acc, alpha, ptr(t["p_q"]), ptr(t["p_qinv"]), ptr(t["bh"]), ptr(t["w"]), nq,
+        ptr(t["q"]), ptr(t["qinv"]), ptr(t["psi"]), ptr(t["roots"]), ptr(q_part), ptr(t["pinv"]), ptr(out),
+        n, n.bit_length() - 1,
+    )
+    return out
