@@ -7,12 +7,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   1. print the card's name and power limit, then build every CUDA kernel of
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the CKKS multiply gives it for the ``lstm`` (N = 2^16) and
-     ``matmul`` (N = 2^13) presets: bit-exact, launched, timed with CUDA events;
-  3. run the main path for both presets through the public API — keygen,
-     encode, encrypt, ``ctx.mul`` (fused key-switch), decrypt, decode — and
-     check the ciphertext's SHA-256 against the reference package's, the decode
-     error, the dispatch counts, and that every dispatch launched a kernel;
+     shapes the paths below give it — the CKKS multiply at the ``lstm``
+     (N = 2^16) and ``matmul`` (N = 2^13) presets, BConv on the staged
+     pipeline, the hoisted ModUp and Galois MAC at ``lstm`` and
+     ``lola_mnist_plain`` — bit-exact, launched, timed with CUDA events;
+  3. run the paths through the public API, each with the launch counters set
+     to 0 just before it and read just after, and check each against the
+     reference package's SHA-256 digests, dispatch counts and decode errors,
+     and that every dispatch launched a kernel:
+       3.  keygen, encode, encrypt, ``ctx.mul`` (fused key-switch), decrypt,
+           decode, for both presets;
+       3a. ``ctx.mul`` again under ``ExecPolicy(backend="staged")`` (BConv);
+       3b. the encrypted MLP of ``examples/fhe_inference.py`` at
+           ``lola_mnist_plain`` (two hoisted BSGS matvecs and a square);
+       3c. a hoisted group of rotations by 1, 2, 3, 4 at ``lstm``, and one
+           standard rotation;
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -47,6 +56,37 @@ REFERENCE = {
 }
 # Dispatches of one fused ctx.mul (rescale included) in the reference package.
 FUSED_MUL_DISPATCHES = {"mulmod": 6, "addmod": 3, "submod": 2, "ntt": 2, "intt": 4, "fusedks": 1, "fused_moddown": 1}
+# ... and of one staged ctx.mul, per preset (β = 3 at matmul, 2 at lstm).
+STAGED_MUL_DISPATCHES = {
+    "matmul": {"mulmod": 19, "addmod": 9, "submod": 4, "ntt": 7, "intt": 5, "bconv": 5},
+    "lstm": {"mulmod": 16, "addmod": 7, "submod": 4, "ntt": 6, "intt": 5, "bconv": 4},
+}
+
+# The encrypted MLP of examples/fhe_inference.py at the lola_mnist_plain preset
+# (see mlp_model): digests of ct1 = apply_bsgs(x, plan1) and of
+# ct3 = apply_bsgs(square(ct1), plan2), from the reference package on the CPU
+# with the same keys (full_keyset(p, seed=0, rotations=plan1 ∪ plan2)), the
+# same encryption seed and ExecPolicy(backend="ref").  The reference's decode
+# error against the cleartext MLP is 1.289e-3.
+MLP = dict(
+    preset="lola_mnist_plain", plans=(8, 8, 31, 19), galois_keys=10, max_err=5e-3,
+    ct1="43c34f4048a690d8c129d407a8b381b11983f1a714d389ca4285757faf29209c",
+    ct3="c9de09c31e931e130df5ce2054c2a57b4e91c384993ba7456c2eebb6e261db12",
+)
+# A hoisted group at the lstm preset: full_keyset(p, seed=0, rotations=(1, 2, 3, 4)),
+# z = default_rng(0).normal(size=slots)·0.4, g = ctx.rotate_hoisted_group(ctx.encrypt(ctx.encode(z)), rotations);
+# the digest runs over g[1], g[2], g[3], g[4], and decode_errors are the reference's
+# max |decode(g[r]) − roll(z, −r)|.  They are key-switch noise at a 2^30 scale and
+# N = 2^16, and the port must give the same values, not smaller ones.
+LSTM_GROUP = dict(
+    preset="lstm", rotations=(1, 2, 3, 4),
+    digest="0afacbe461cfb47d9fae23220f7061d55273193220e09722cddd83b5dc7e35d5",
+    decode_errors=(0.11318043501489981, 0.09604106998682596, 0.16380365372399094, 0.06704722754331537),
+)
+# Which kernel each dispatch op launches.
+KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": "ntt", "intt": "ntt",
+             "fusedks": "fused_ks", "fused_moddown": "fused_moddown", "bconv": "bconv",
+             "hoistmodup": "hoist_modup", "hoistmac": "hoist_mac"}
 
 # H100 SXM peaks (NVIDIA data sheet): memory rate, and the non-tensor float32
 # rate, against which the kernels' integer operations are counted.
@@ -66,25 +106,85 @@ def ntt_ops_per_limb(n: int) -> int:
     return (n // 2) * (n.bit_length() - 1) * (MONTMUL + 2 * ADDMOD) + n * MONTMUL
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, hide_host: bool = False) -> float:
+def modup_ops(n: int, k: int, m: int, rows: int) -> int:
+    """Operations of a ModUp of k source limbs to m target limbs, ``rows`` NTT
+    rows in all: the prescale once per source limb, one montmul and one add per
+    (source, target) term, and each row's twist and forward NTT."""
+    return n * k * MONTMUL + m * n * k * (MONTMUL + ADDMOD) + rows * ntt_ops_per_limb(n)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, hide_host: bool = False, sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Mean milliseconds per call between CUDA events around ``iters`` calls.
 
-    With ``hide_host`` the stream first spins ~10 ms (``torch.cuda._sleep``),
-    so the host has queued every launch before the start event runs and the
-    events time the device alone.  Without it, a call's host overhead counts.
+    With ``hide_host`` the stream first spins ``sleep_cycles`` (~10 ms by
+    default, ``torch.cuda._sleep``), so the host has queued every launch
+    before the start event runs and the events time the device alone.
+    Without it, a call's host overhead counts.
     """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if hide_host:
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def mlp_model(p) -> dict:
+    """The 2-layer MLP of examples/fhe_inference.py, with its weights packed as
+    slots×slots block matrices, its input packed in the first 16 slots, and
+    the cleartext output."""
+    rng = np.random.default_rng(1)
+    w1 = rng.normal(size=(16, 16)) * 0.4
+    w2 = rng.normal(size=(16, 4)) * 0.4
+    x = rng.normal(size=16) * 0.5
+
+    def block(w):
+        m = np.zeros((p.slots, p.slots))
+        m[: w.shape[1], : w.shape[0]] = w.T
+        return m
+
+    x_slots = np.zeros(p.slots)
+    x_slots[:16] = x
+    return dict(m1=block(w1), m2=block(w2), x_slots=x_slots, want=((x @ w1) ** 2) @ w2)
+
+
+def digest(*cts) -> str:
+    h = hashlib.sha256()
+    for c in cts:
+        h.update(c.c0.cpu().numpy().astype("<u4").tobytes() + c.c1.cpu().numpy().astype("<u4").tobytes())
+    return h.hexdigest()
+
+
+def timed(steps: dict, label: str, fn):
+    """Run ``fn`` between two ``torch.cuda.synchronize()``s; record its host milliseconds under ``label``."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps[label] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """(ms the device spent in kernels and copies, wall ms) over one call of ``fn``
+    after a first call, from ``torch.profiler`` (the wall time includes its overhead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return busy_us / 1e3, wall
 
 
 def rand_residues(shape, primes, gen) -> torch.Tensor:
@@ -102,12 +202,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.fhe import keys as K
+    from repro_torch.fhe import linear
     from repro_torch.fhe import params as P
-    from repro_torch.fhe import poly
+    from repro_torch.fhe import poly, rns
     from repro_torch.fhe.context import ExecPolicy, FheContext
     from repro_torch.kernels import cuda, dispatch
+    from repro_torch.kernels.bconv import ops as bops
+    from repro_torch.kernels.bconv import ref as bref
     from repro_torch.kernels.fusedks import ops as fops
     from repro_torch.kernels.fusedks import ref as fref
+    from repro_torch.kernels.hoistrot import ops as hops
+    from repro_torch.kernels.hoistrot import ref as href
     from repro_torch.kernels.modops import ops as mops
     from repro_torch.kernels.modops import ref as mref
     from repro_torch.kernels.ntt import ops as nops
@@ -135,9 +240,35 @@ def main() -> int:
                          replaces="src/repro/kernels/fusedks/kernel.py:121 (fused_ks_pallas)"),
         "fused_moddown": dict(k=fops.FUSED_MODDOWN, source="src/repro_torch/csrc/fusedks.cu",
                               replaces="src/repro/kernels/fusedks/kernel.py:178 (fused_moddown_pallas)"),
+        "bconv": dict(k=bops.KERNEL, source="src/repro_torch/csrc/bconv.cu",
+                      replaces="src/repro/kernels/bconv/kernel.py:56 (bconv_pallas)"),
+        "hoist_modup": dict(k=hops.HOIST_MODUP, source="src/repro_torch/csrc/hoistrot.cu",
+                            replaces="src/repro/kernels/hoistrot/kernel.py:56 (hoist_modup_pallas)"),
+        "hoist_mac": dict(k=hops.HOIST_MAC, source="src/repro_torch/csrc/hoistrot.cu",
+                          replaces="src/repro/kernels/hoistrot/kernel.py:111 (hoist_mac_pallas)"),
     }
     for v in kernels.values():
         v["cases"] = []
+
+    def reset_launches():
+        for v in kernels.values():
+            v["k"].launches = 0
+
+    def read_launches() -> dict:
+        return {k: v["k"].launches for k, v in kernels.items()}
+
+    def launches_of(counts) -> dict:
+        """The kernel launches a dict of dispatch counts implies."""
+        want = {k: 0 for k in kernels}
+        for op, c in counts.items():
+            want[KERNEL_OF[op]] += c
+        return want
+
+    # The MLP's BSGS plans (numpy): their baby-step groups give hoist_mac's shape.
+    mlp_p = P.workload_params(MLP["preset"])
+    model = mlp_model(mlp_p)
+    plan1 = linear.plan_matrix(model["m1"], tol=1e-12, params=mlp_p, level=mlp_p.L, hoisting=True)
+    plan2 = linear.plan_matrix(model["m2"], tol=1e-12, params=mlp_p, level=mlp_p.L - 2, hoisting=True)
 
     # -- 2. every kernel against its plain version, at the main path's shapes ---
     gen = torch.Generator(device=DEVICE)
@@ -190,94 +321,240 @@ def main() -> int:
                       (2 * rows + 2 * l) * n * WORD, rows * ntt_ops_per_limb(n))
         d = rand_residues((nq, n), qp, gen)
         ksk = rand_residues((beta, 2, m, n), ext, gen)
-        ks_ops = m * sum(n * len(p.digit(j)) * (2 * MONTMUL + ADDMOD) + ntt_ops_per_limb(n)
-                         + 2 * n * (MULMOD + ADDMOD) for j in range(beta))
+        ks_ops = modup_ops(n, nq, m, beta * m) + beta * m * 2 * n * (MULMOD + ADDMOD)
         check("fused_ks", f"{name} beta={beta} ksk {tuple(ksk.shape)}",
               lambda: fops.key_switch_digits(d, ksk, p, lv), lambda: fref.key_switch_digits_ref(d, ksk, p, lv),
               (nq + 2 * beta * m + 2 * m + 2 * m) * n * WORD, ks_ops)
         qpart = rand_residues((2, nq, n), qp, gen)
-        md_ops = 2 * nq * (n * alpha * (2 * MONTMUL + ADDMOD) + ntt_ops_per_limb(n) + n * (ADDMOD + MONTMUL))
+        md_ops = 2 * (modup_ops(n, alpha, nq, nq) + nq * n * (ADDMOD + MONTMUL))
         check("fused_moddown", f"{name} pc {tuple(xp.shape)} q {tuple(qpart.shape)}",
               lambda: fops.mod_down_digits(xp, qpart, p, lv), lambda: fref.mod_down_digits_ref(xp, qpart, p, lv),
               (2 * alpha + 2 * nq + 2 * nq + 2 * nq) * n * WORD, md_ops)
+
+    # BConv at the staged pipeline's shapes: digit 0 → extended basis, and ModDown's P → q
+    for name in ("lstm", "matmul", MLP["preset"]):
+        p = P.workload_params(name)
+        n, lv = p.n, p.L
+        ext = poly.primes_for(p, poly.ext_idx(p, lv))
+        src = poly.primes_for(p, tuple(i for i in p.digit(0) if i <= lv))
+        convs = [(src, ext)]
+        if name == "lstm":
+            convs.append((poly.primes_for(p, poly.p_idx(p)), poly.primes_for(p, poly.q_idx(p, lv))))
+        for bsrc, dst in convs:
+            _, w = rns.bconv_tables(bsrc, dst)
+            xh = rand_residues((len(bsrc), n), bsrc, gen)
+            k, m = len(bsrc), len(dst)
+            check("bconv", f"{name} ({k}, {n}) -> ({m}, {n})", lambda: bops.bconv(xh, w, dst),
+                  lambda: bref.bconv_ref(xh, w, dst), (k + m) * n * WORD, k * m * n * (MONTMUL + ADDMOD))
+
+    # the hoisted ModUp and the batched Galois MAC: the lstm group of 4 and the MLP's first baby group
+    for name, nrot in (("lstm", len(LSTM_GROUP["rotations"])), (MLP["preset"], len(plan1.baby_steps()))):
+        p = P.workload_params(name)
+        n, lv, beta = p.n, p.L, p.beta(p.L)
+        nq, m = lv + 1, lv + 1 + p.alpha
+        qp = poly.primes_for(p, poly.q_idx(p, lv))
+        ext = poly.primes_for(p, poly.ext_idx(p, lv))
+        d = rand_residues((nq, n), qp, gen)
+        check("hoist_modup", f"{name} d ({nq}, {n}) -> ({beta}, {m}, {n})", lambda: hops.mod_up_digits(d, p, lv),
+              lambda: href.mod_up_digits_ref(d, p, lv), (nq + 2 * m + beta * m) * n * WORD,
+              modup_ops(n, nq, m, beta * m))
+        dig = rand_residues((beta * m, n), ext * beta, gen).reshape(beta, m, n)
+        ksk = rand_residues((nrot * beta * 2 * m, n), ext * (nrot * beta * 2), gen).reshape(nrot, beta, 2, m, n)
+        check("hoist_mac", f"{name} R={nrot} ksk {tuple(ksk.shape)}", lambda: hops.galois_mac(dig, ksk, p, lv),
+              lambda: href.galois_mac_ref(dig, ksk, p, lv), (beta * m + nrot * 2 * beta * m + nrot * 2 * m) * n * WORD,
+              nrot * 2 * m * n * beta * (MULMOD + ADDMOD))
+        del dig, ksk
     if failures:
         print("FAILED kernel checks: " + ", ".join(failures), file=sys.stderr)
         return 1
 
     # -- 3. the main path, through the public API --------------------------------
     print("main path (keygen, encode, encrypt, ctx.mul, decrypt, decode):")
-    main_launches = {}
+    mul_kernels = ("modops", "ntt", "fused_ks", "fused_moddown")
+    main_launches, keysets = {}, {}
     for name in ("matmul", "lstm"):
         p = P.workload_params(name)
-        for v in kernels.values():
-            v["k"].launches = 0
+        reset_launches()
         steps = {}
-
-        def step(label, fn):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            steps[label] = (time.perf_counter() - t) * 1e3
-            return out
-
-        ks = step("keygen", lambda: K.full_keyset(p, seed=0, device=DEVICE))
+        ks = timed(steps, "keygen", lambda: K.full_keyset(p, seed=0, device=DEVICE))
+        keysets[name] = ks
         ctx = FheContext(params=p, keys=ks, policy=ExecPolicy(), device=DEVICE)
         z = np.random.default_rng(0).normal(size=p.slots) * 0.4
-        pt = step("encode", lambda: ctx.encode(z))
-        ct = step("encrypt", lambda: ctx.encrypt(pt))
-        before = {k: v["k"].launches for k, v in kernels.items()}
+        pt = timed(steps, "encode", lambda: ctx.encode(z))
+        ct = timed(steps, "encrypt", lambda: ctx.encrypt(pt))
+        before = read_launches()
         with dispatch.count_dispatches() as counts:
-            out = step("mul", lambda: ctx.mul(ct, ct))
-        mul_launches = {k: v["k"].launches - before[k] for k, v in kernels.items()}
-        again = step("mul again", lambda: ctx.mul(ct, ct))  # tables are built: steady state
-        dec = step("decrypt", lambda: ctx.decrypt(out))
-        got = step("decode", lambda: ctx.decode(dec))
-        main_launches[name] = {k: v["k"].launches for k, v in kernels.items()}
+            out = timed(steps, "mul", lambda: ctx.mul(ct, ct))
+        mul_launches = {k: v - before[k] for k, v in read_launches().items()}
+        again = timed(steps, "mul again", lambda: ctx.mul(ct, ct))  # tables are built: steady state
+        dec = timed(steps, "decrypt", lambda: ctx.decrypt(out))
+        got = timed(steps, "decode", lambda: ctx.decode(dec))
+        main_launches[name] = read_launches()
 
-        digest = hashlib.sha256(out.c0.cpu().numpy().astype("<u4").tobytes()
-                                + out.c1.cpu().numpy().astype("<u4").tobytes()).hexdigest()
+        dg = digest(out)
         err = float(np.max(np.abs(got - z * z)))
         ref = REFERENCE[name]
         print(f"  {name}: pipeline={ctx.pipeline} " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
-        print(f"  {name}: digest {digest[:16]} decode err {err:.3e} dispatches {dict(counts)}")
+        print(f"  {name}: digest {dg[:16]} decode err {err:.3e} dispatches {dict(counts)}")
         print(f"  {name}: kernel launches in ctx.mul {mul_launches}, in the whole path {main_launches[name]}")
-        expected_launches = {
-            "modops": counts.get("mulmod", 0) + counts.get("addmod", 0) + counts.get("submod", 0),
-            "ntt": counts.get("ntt", 0) + counts.get("intt", 0),
-            "fused_ks": counts.get("fusedks", 0),
-            "fused_moddown": counts.get("fused_moddown", 0),
-        }
         problems = []
         if ctx.pipeline != "fused":
             problems.append(f"pipeline {ctx.pipeline}")
-        if digest != ref["digest"]:
-            problems.append(f"digest {digest} != reference {ref['digest']}")
+        if dg != ref["digest"]:
+            problems.append(f"digest {dg} != reference {ref['digest']}")
         if not err < ref["max_err"]:
             problems.append(f"decode error {err} ≥ {ref['max_err']}")
         if not (torch.equal(again.c0, out.c0) and torch.equal(again.c1, out.c1)):
             problems.append("a second ctx.mul gave other bytes")
         if dict(counts) != FUSED_MUL_DISPATCHES:
             problems.append(f"dispatches {dict(counts)} != {FUSED_MUL_DISPATCHES}")
-        if mul_launches != expected_launches:
-            problems.append(f"kernel launches {mul_launches} != dispatches {expected_launches}")
-        if min(main_launches[name].values()) < 1:
+        if mul_launches != launches_of(counts):
+            problems.append(f"kernel launches {mul_launches} != dispatches {launches_of(counts)}")
+        if min(main_launches[name][k] for k in mul_kernels) < 1:
             problems.append(f"a kernel was not launched: {main_launches[name]}")
         if problems:
             print(f"FAILED main path {name}: " + "; ".join(problems), file=sys.stderr)
             return 1
+    paths = {f"mul {name}": launches for name, launches in main_launches.items()}
+
+    # -- 3a. ctx.mul on the staged pipeline: BConv on the card -------------------
+    print("staged pipeline (ctx.mul under ExecPolicy(backend='staged')):")
+    for name in ("matmul", "lstm"):
+        p = P.workload_params(name)
+        ctx = FheContext(params=p, keys=keysets[name], policy=ExecPolicy(backend="staged"), device=DEVICE)
+        z = np.random.default_rng(0).normal(size=p.slots) * 0.4
+        ct = ctx.encrypt(ctx.encode(z))
+        steps = {}
+        reset_launches()
+        with dispatch.count_dispatches() as counts:
+            out = timed(steps, "mul", lambda: ctx.mul(ct, ct))
+        paths[f"staged mul {name}"] = launched = read_launches()
+        again = timed(steps, "mul again", lambda: ctx.mul(ct, ct))
+        dg = digest(out)
+        print(f"  {name}: pipeline={ctx.pipeline} " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+        print(f"  {name}: digest {dg[:16]} dispatches {dict(counts)} launches {launched}")
+        problems = []
+        if ctx.pipeline != "staged":
+            problems.append(f"pipeline {ctx.pipeline}")
+        if dg != REFERENCE[name]["digest"] or digest(again) != dg:
+            problems.append(f"digest {dg} != reference {REFERENCE[name]['digest']}")
+        if dict(counts) != STAGED_MUL_DISPATCHES[name]:
+            problems.append(f"dispatches {dict(counts)} != {STAGED_MUL_DISPATCHES[name]}")
+        if launched != launches_of(counts) or min(launched[k] for k in ("modops", "ntt", "bconv")) < 1:
+            problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
+        if problems:
+            print(f"FAILED staged path {name}: " + "; ".join(problems), file=sys.stderr)
+            return 1
+
+    # -- 3b. the encrypted MLP at lola_mnist_plain: hoisted BSGS matvecs ----------
+    print(f"encrypted MLP at {MLP['preset']} (keygen, apply_bsgs, square, apply_bsgs, decode):")
+    p = mlp_p
+    rots = tuple(sorted(plan1.rotations() | plan2.rotations()))
+    plans = (plan1.n1, plan2.n1, len(plan1.diags), len(plan2.diags))
+    steps = {}
+    reset_launches()
+    with dispatch.count_dispatches() as counts:
+        ks = timed(steps, "keygen", lambda: K.full_keyset(p, seed=0, rotations=rots, device=DEVICE))
+        ctx = FheContext(params=p, keys=ks, device=DEVICE)
+        ct = timed(steps, "encode+encrypt", lambda: ctx.encrypt(ctx.encode(model["x_slots"])))
+        ct1 = timed(steps, "apply_bsgs 1", lambda: ctx.apply_bsgs(ct, plan1))
+        ct2 = timed(steps, "square", lambda: ctx.square(ct1))
+        ct3 = timed(steps, "apply_bsgs 2", lambda: ctx.apply_bsgs(ct2, plan2))
+        got = timed(steps, "decode", lambda: ctx.decrypt_decode(ct3))
+    paths["mlp"] = launched = read_launches()
+    again = timed(steps, "MLP again", lambda: ctx.apply_bsgs(ctx.square(ctx.apply_bsgs(ct, plan1)), plan2))
+    err = float(np.max(np.abs(got.real[:4] - model["want"])))
+    print(f"  rotations {rots}, {len(ks.gks)} Galois keys, plans (n1, n1, diags, diags) {plans}, "
+          f"policy {ctx.policy_key()} pipeline={ctx.pipeline}")
+    print("  " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+    print(f"  ct1 {digest(ct1)[:16]} ct3 {digest(ct3)[:16]} levels {ct1.level} {ct2.level} {ct3.level} "
+          f"decode err {err:.3e}")
+    print(f"  dispatches {dict(counts)} launches {launched}")
+    problems = []
+    if ctx.pipeline != "fused" or plans != MLP["plans"] or len(ks.gks) != MLP["galois_keys"]:
+        problems.append(f"pipeline {ctx.pipeline}, plans {plans}, {len(ks.gks)} Galois keys")
+    if digest(ct1) != MLP["ct1"] or digest(ct3) != MLP["ct3"] or digest(again) != MLP["ct3"]:
+        problems.append(f"digests {digest(ct1)}, {digest(ct3)} != reference {MLP['ct1']}, {MLP['ct3']}")
+    if not err <= MLP["max_err"]:
+        problems.append(f"decode error {err} > {MLP['max_err']}")
+    mlp_kernels = ("modops", "ntt", "fused_ks", "fused_moddown", "hoist_modup", "hoist_mac")
+    if launched != launches_of(counts) or min(launched[k] for k in mlp_kernels) < 1:
+        problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
+    if problems:
+        print("FAILED MLP path: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    mlp_ctx, mlp_ct = ctx, ct
+
+    # -- 3c. a hoisted rotation group at lstm -------------------------------------
+    rotations = LSTM_GROUP["rotations"]
+    print(f"hoisted rotation group {rotations} at {LSTM_GROUP['preset']}, against standard rotations:")
+    p = P.workload_params(LSTM_GROUP["preset"])
+    steps = {}
+    ks = timed(steps, "keygen", lambda: K.full_keyset(p, seed=0, rotations=rotations, device=DEVICE))
+    ctx = FheContext(params=p, keys=ks, device=DEVICE)
+    z = np.random.default_rng(0).normal(size=p.slots) * 0.4
+    ct = ctx.encrypt(ctx.encode(z))
+    reset_launches()
+    with dispatch.count_dispatches() as gcounts:
+        g = timed(steps, "group", lambda: ctx.rotate_hoisted_group(ct, rotations))
+    paths["lstm group"] = group_launched = read_launches()
+    reset_launches()
+    with dispatch.count_dispatches() as rcounts:
+        r1 = timed(steps, "rotate 1", lambda: ctx.rotate(ct, 1))
+    paths["lstm rotate"] = rot_launched = read_launches()
+    four = lambda: [ctx.rotate(ct, r) for r in rotations]
+    timed(steps, "group again", lambda: ctx.rotate_hoisted_group(ct, rotations))
+    timed(steps, "4 rotates again", four)
+    group_dev = time_ms(lambda: ctx.rotate_hoisted_group(ct, rotations), iters=5, warmup=1, hide_host=True,
+                        sleep_cycles=20 * SLEEP_CYCLES)
+    four_dev = time_ms(four, iters=5, warmup=1, hide_host=True, sleep_cycles=20 * SLEEP_CYCLES)
+    gd = digest(*(g[r] for r in rotations))
+    errs = [float(np.max(np.abs(ctx.decrypt_decode(g[r]) - np.roll(z, -r)))) for r in rotations]
+    print("  " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+    print(f"  device time (CUDA events, host hidden): group {group_dev:.4f} ms, 4 rotates {four_dev:.4f} ms")
+    print(f"  digest {gd[:16]} decode errors {errs} (reference {list(LSTM_GROUP['decode_errors'])})")
+    print(f"  group dispatches {dict(gcounts)} launches {group_launched}")
+    print(f"  rotate dispatches {dict(rcounts)} launches {rot_launched}")
+    problems = []
+    if ctx.pipeline != "fused" or gd != LSTM_GROUP["digest"]:
+        problems.append(f"pipeline {ctx.pipeline}, digest {gd} != reference {LSTM_GROUP['digest']}")
+    if not (torch.equal(r1.c0, g[1].c0) and torch.equal(r1.c1, g[1].c1)):
+        problems.append("ctx.rotate(ct, 1) != group[1]")
+    if dispatch.total(gcounts) != 5 + len(rotations) or dispatch.total(rcounts) != 5:
+        problems.append(f"dispatches {dispatch.total(gcounts)} (group) and {dispatch.total(rcounts)} (rotate)")
+    if max(abs(e - w) for e, w in zip(errs, LSTM_GROUP["decode_errors"])) > 1e-9:
+        problems.append(f"decode errors {errs} != reference {LSTM_GROUP['decode_errors']}")
+    group_kernels = ("modops", "ntt", "fused_moddown", "hoist_modup", "hoist_mac")
+    if group_launched != launches_of(gcounts) or min(group_launched[k] for k in group_kernels) < 1:
+        problems.append(f"group launches {group_launched} != dispatches {launches_of(gcounts)}")
+    if rot_launched != launches_of(rcounts):
+        problems.append(f"rotate launches {rot_launched} != dispatches {launches_of(rcounts)}")
+    if problems:
+        print("FAILED lstm group path: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    for label, fn in (
+        ("MLP (apply_bsgs, square, apply_bsgs)",
+         lambda: mlp_ctx.apply_bsgs(mlp_ctx.square(mlp_ctx.apply_bsgs(mlp_ct, plan1)), plan2)),
+        ("lstm group of 4", lambda: ctx.rotate_hoisted_group(ct, rotations)),
+        ("lstm 4 rotates", four),
+    ):
+        busy, wall = device_busy(fn)
+        print(f"  profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall under the profiler, "
+              f"idle share {1 - busy / wall:.3f}")
 
     # -- 4. report ---------------------------------------------------------------
+    # launches: from the path that carries the kernel at the lstm shape of its first case
+    home = {"bconv": "staged mul lstm", "hoist_modup": "lstm group", "hoist_mac": "lstm group"}
     rows = []
     for kname, v in kernels.items():
-        head = v["cases"][0]  # the lstm shape the main path gives the kernel
+        head = v["cases"][0]  # the lstm shape its path gives the kernel
         rows.append(dict(
             name=kname, route="cuda", source=v["source"], replaces=v["replaces"],
-            launches=main_launches["lstm"][kname], max_abs_err=max(c["max_abs_err"] for c in v["cases"]),
+            launches=paths[home.get(kname, "mul lstm")][kname], max_abs_err=max(c["max_abs_err"] for c in v["cases"]),
             ms=head["kernel_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, exact=all(c["exact"] for c in v["cases"]), kernel_ms=head["kernel_ms"],
-            call_ms=head["call_ms"],
-            shape=head["case"], launches_matmul=main_launches["matmul"][kname], cases=v["cases"],
+            call_ms=head["call_ms"], shape=head["case"], launches_path=home.get(kname, "mul lstm"),
+            launches_by_path={path: launches[kname] for path, launches in paths.items()}, cases=v["cases"],
         ))
     print("no single PyTorch call computes any of these functions: library_ms is null")
     print(json.dumps({"kernels": rows}))

@@ -5,9 +5,9 @@
 // (src/repro/kernels/fusedks/kernel.py:121, 178).  On the TPU the digit axis j
 // was the innermost sequential grid axis, accumulating through
 // pl.when(j == 0); blocks on Hopper run in no order, so here each block owns
-// one output limb and loops over the digits itself.  BConv reduces every
-// x̂_i·W[i, e] term mod c_e before adding (the rule of
-// src/repro/kernels/bconv/ref.py:28).  The TPU's 8-bit-limb MXU dots and its
+// one output limb and loops over the digits itself.  BConv is the shared
+// modup_row of bconv_core.cuh, which reduces every x̂_i·W[i, e] term mod
+// c_e before adding (the rule of src/repro/kernels/bconv/ref.py:28).  The TPU's 8-bit-limb MXU dots and its
 // zero-padded digit rows with the dummy modulus 3 have no place here: each
 // digit loops over its own limb count.  The NTT is the device function of
 // ntt.cu (ntt_core.cuh), so both kernels hold the working limb in shared
@@ -25,6 +25,7 @@
 
 #include <cstdint>
 
+#include "bconv_core.cuh"
 #include "ntt_core.cuh"
 
 namespace {
@@ -50,7 +51,6 @@ __global__ void __launch_bounds__(NTT_THREADS)
     const uint32_t c = ext_q[e];
     const uint32_t cinv = ext_qinv[e];
     const uint32_t r2 = ext_r2[e];
-    const uint32_t* psi = psi_m + static_cast<size_t>(e) * n;
     uint32_t* buf = ntt_buffer(scratch != nullptr ? scratch + static_cast<size_t>(e) * n : nullptr);
     uint32_t* acc0 = out + static_cast<size_t>(e) * 2 * n;
     uint32_t* acc1 = acc0 + n;
@@ -58,16 +58,7 @@ __global__ void __launch_bounds__(NTT_THREADS)
     for (int j = 0; j < beta; ++j) {
         const int lo = j * alpha;
         const int hi = min(lo + alpha, nq);
-        // prescale + BConv row e, written twisted to its bit-reversed slot
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            uint32_t y = 0;
-            for (int s = lo; s < hi; ++s) {
-                const uint32_t xh = montmul(d[static_cast<size_t>(s) * n + i], bh_m[s], ext_q[s], ext_qinv[s]);
-                y = addmod(y, montmul(xh, w_m[static_cast<size_t>(s) * m + e], c, cinv), c);
-            }
-            buf[bitrev(i, log_n)] = montmul(y, psi[i], c, cinv);
-        }
-        ntt_dit_stages(buf, roots_m + static_cast<size_t>(e) * n, n, log_n, c, cinv);
+        modup_row(buf, d, n, log_n, lo, hi, bh_m, ext_q, ext_qinv, w_m, m, e, c, cinv, psi_m, roots_m);
         // key MAC into both accumulators
         const uint32_t* k0 = ksk + (static_cast<size_t>(2 * j) * m + e) * n;
         const uint32_t* k1 = ksk + (static_cast<size_t>(2 * j + 1) * m + e) * n;
@@ -103,20 +94,11 @@ __global__ void __launch_bounds__(NTT_THREADS)
     const uint32_t qe = q[e];
     const uint32_t qi = qinv[e];
     const uint32_t* src = pc + static_cast<size_t>(cb) * alpha * n;
-    const uint32_t* psi = psi_m + static_cast<size_t>(e) * n;
     const uint32_t* qp = qpart + (static_cast<size_t>(cb) * nq + e) * n;
     uint32_t* outr = out + (static_cast<size_t>(cb) * nq + e) * n;
     uint32_t* buf = ntt_buffer(in_global ? outr : nullptr);
 
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        uint32_t y = 0;
-        for (int s = 0; s < alpha; ++s) {
-            const uint32_t xh = montmul(src[static_cast<size_t>(s) * n + i], bh_m[s], p_q[s], p_qinv[s]);
-            y = addmod(y, montmul(xh, w_m[static_cast<size_t>(s) * nq + e], qe, qi), qe);
-        }
-        buf[bitrev(i, log_n)] = montmul(y, psi[i], qe, qi);
-    }
-    ntt_dit_stages(buf, roots_m + static_cast<size_t>(e) * n, n, log_n, qe, qi);
+    modup_row(buf, src, n, log_n, 0, alpha, bh_m, p_q, p_qinv, w_m, nq, e, qe, qi, psi_m, roots_m);
     const uint32_t pinv = pinv_m[e];
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         outr[i] = montmul(submod(qp[i], buf[i], qe), pinv, qe, qi);

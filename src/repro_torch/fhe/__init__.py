@@ -4,10 +4,14 @@ Residues are int32 tensors (every prime is < 2^31); the plain versions of the
 kernels compute in int64 and the kernels read the buffers as uint32_t.
 
 Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``),
-exported lazily so that ``repro_torch.fhe.params`` and friends stay cheap.
+and the BSGS planning module ``linear``, exported lazily so that
+``repro_torch.fhe.params`` and friends stay cheap.
 """
 
+import importlib
+
 _CONTEXT_EXPORTS = ("FheContext", "ExecPolicy")
+_LAZY_MODULES = ("linear",)
 
 
 def __getattr__(name):
@@ -15,8 +19,10 @@ def __getattr__(name):
         from . import context
 
         return getattr(context, name)
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(list(globals()) + list(_CONTEXT_EXPORTS))
+    return sorted(set(globals()) | set(_CONTEXT_EXPORTS) | set(_LAZY_MODULES))

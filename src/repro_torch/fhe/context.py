@@ -16,9 +16,12 @@ Quick use::
     from repro_torch.fhe import FheContext, ExecPolicy, keys as K, params as P
 
     p = P.workload_params("matmul")
-    ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0))
+    ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=(1, 2)))
     ct = ctx.encrypt(ctx.encode(x))
     y = ctx.decrypt_decode(ctx.mul(ct, ct))
+    g = ctx.rotate_hoisted_group(ct, (1, 2))      # {1: rot_1(x), 2: rot_2(x)}, one ModUp
+    plan = ctx.plan_matrix(m, tol=1e-12)          # BSGS diagonals of an slots×slots matrix
+    mv = ctx.apply_bsgs(ct, plan)                 # needs keys for plan.rotations()
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 
-from . import keyswitch, ops
+from . import keyswitch, linear, ops
 from .keys import KeySet, SwitchingKey
 from .params import CkksParams
 
@@ -72,6 +75,17 @@ class ExecPolicy:
 
     def replace(self, **changes) -> "ExecPolicy":
         return dataclasses.replace(self, **changes)
+
+    # -- resolved views -----------------------------------------------------
+    # The reference also resolves ``stage`` and ``plan_fused`` here, on JAX's
+    # default backend.  This package resolves "auto" on a device, which a
+    # policy does not hold, so those two views live on ``FheContext``.
+
+    @property
+    def plan_hoist(self) -> bool:
+        """Does this policy hoist BSGS baby-step groups?  ``auto`` counts as
+        hoisted: every multi-rotation group shares its ModUp."""
+        return self.hoisting != "never"
 
 
 def _hooked(fn):
@@ -134,6 +148,16 @@ class FheContext:
     def pipeline(self) -> str:
         """The key-switch pipeline this context runs: "fused" or "staged"."""
         return keyswitch.resolve_pipeline(self.backend, self.device)[0]
+
+    @property
+    def stage(self) -> str:
+        """Pointwise-stage backend the policy resolves to on this context's device."""
+        return keyswitch.resolve_pipeline(self.backend, self.device)[1]
+
+    @property
+    def plan_fused(self) -> bool:
+        """Does this context run the fused key-switch pipeline?"""
+        return self.pipeline == "fused"
 
     def require_keys(self) -> KeySet:
         if self.keys is None:
@@ -215,3 +239,56 @@ class FheContext:
     @_hooked
     def rescale(self, ct):
         return ops._rescale(self, ct)
+
+    # -- rotations / conjugation --------------------------------------------
+
+    @_hooked
+    def rotate(self, ct, r: int):
+        """Cyclic slot rotation by r; the policy's hoisting mode picks the
+        key-switch shape ("always" routes a single rotation through the
+        hoisted path — bit-exact either way)."""
+        return ops._rotate(self, ct, r, self.require_keys())
+
+    @_hooked
+    def rotate_hoisted(self, ct, r: int, hoisted=None):
+        return ops._rotate_hoisted(self, ct, r, self.require_keys(), hoisted)
+
+    @_hooked
+    def rotate_hoisted_group(self, ct, rots) -> dict:
+        return ops._rotate_hoisted_group(self, ct, rots, self.require_keys())
+
+    @_hooked
+    def conjugate(self, ct):
+        return ops._conjugate(self, ct, self.require_keys())
+
+    # -- linear transforms ---------------------------------------------------
+
+    def plan_matrix(self, m, n1: int | None = None, tol: float = 0.0,
+                    level: int | None = None) -> linear.BsgsPlan:
+        """BSGS plan for a dense matrix; when ``n1`` is not forced, the baby
+        count comes from the hoisting-aware cost model (under a hoisting
+        policy, baby steps are nearly free, so the optimum shifts upward)."""
+        return linear.plan_matrix(
+            m, n1=n1, tol=tol, params=self.params,
+            level=self.params.L if level is None else level,
+            hoisting=self.policy.plan_hoist,
+        )
+
+    @_hooked
+    def apply_bsgs(self, ct, plan: linear.BsgsPlan, scale: float | None = None):
+        return linear._apply_bsgs(self, ct, plan, scale)
+
+    @_hooked
+    def apply_bsgs_pair(self, ct, plans, scale: float | None = None):
+        return (
+            linear._apply_bsgs(self, ct, plans[0], scale),
+            linear._apply_bsgs(self, ct, plans[1], scale),
+        )
+
+    @_hooked
+    def real_part(self, ct):
+        return linear._real_part(self, ct)
+
+    @_hooked
+    def imag_part(self, ct):
+        return linear._imag_part(self, ct)

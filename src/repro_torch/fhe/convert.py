@@ -15,7 +15,8 @@ from .params import CkksParams
 
 
 def keyset_from_arrays(params: CkksParams, arrays: dict, device="cuda") -> KeySet:
-    """Build a ``KeySet`` from {"s_coeff", "s_eval", "pk_b", "pk_a", "rlk"} host arrays."""
+    """Build a ``KeySet`` from {"s_coeff", "s_eval", "pk_b", "pk_a", "rlk"} host arrays,
+    plus optionally "gks": {galois element t: key array of the rlk's shape}."""
     nall = len(params.all_primes)
     shapes = {
         "s_eval": (nall, params.n),
@@ -26,11 +27,15 @@ def keyset_from_arrays(params: CkksParams, arrays: dict, device="cuda") -> KeySe
     for k, shape in shapes.items():
         if np.shape(arrays[k]) != shape:
             raise ValueError(f"{k} has shape {np.shape(arrays[k])}, expected {shape}")
+    for t, k in arrays.get("gks", {}).items():
+        if np.shape(k) != shapes["rlk"]:
+            raise ValueError(f"galois key {t} has shape {np.shape(k)}, expected {shapes['rlk']}")
     t = {k: poly.residues(arrays[k], device) for k in shapes}
     return KeySet(
         sk=SecretKey(s_coeff=np.asarray(arrays["s_coeff"], np.int64), s_eval=t["s_eval"]),
         pk=PublicKey(b=t["pk_b"], a=t["pk_a"]),
         rlk=SwitchingKey(k=t["rlk"]),
+        gks={int(g): SwitchingKey(k=poly.residues(k, device)) for g, k in arrays.get("gks", {}).items()},
     )
 
 

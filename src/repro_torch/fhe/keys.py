@@ -52,10 +52,19 @@ class KeySet:
     sk: SecretKey
     pk: PublicKey
     rlk: SwitchingKey
+    gks: dict[int, SwitchingKey] = dataclasses.field(default_factory=dict)  # galois element t → key for σ_t(s) → s
+    # (t, level) → σ_t^{-1}-pre-permuted level-restricted key, filled lazily by
+    # ``keyswitch.hoisted_ksk`` — a keygen-time precompute for hoisted rotations
+    hoist_cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.sk.s_eval.device
+
+    def galois(self, t: int) -> SwitchingKey:
+        if t not in self.gks:
+            raise KeyError(f"galois key for t={t} not generated")
+        return self.gks[t]
 
 
 def _uniform_rns(rng: np.random.Generator, primes, n: int) -> np.ndarray:
@@ -138,9 +147,29 @@ def relin_keygen(params: CkksParams, sk: SecretKey, seed: int = 2) -> SwitchingK
     return kskgen(params, sk, s2, seed)
 
 
-def full_keyset(params: CkksParams, seed: int = 0, h: int | None = None, device="cuda") -> KeySet:
-    """Generate sk/pk/rlk on ``device`` (Galois keys arrive with the rotation slice)."""
+def galois_keygen(params: CkksParams, sk: SecretKey, t: int, seed: int = 3) -> SwitchingKey:
+    s_t = poly.automorphism_eval(sk.s_eval, params.n, t)
+    return kskgen(params, sk, s_t, seed + t)
+
+
+def galois_elements(params: CkksParams, rotations: tuple[int, ...] = (),
+                    conjugate: bool = False) -> tuple[int, ...]:
+    """Deduplicated Galois elements a rotation set needs keys for.
+
+    Rotations congruent mod ``slots`` share one element, so precomputing this
+    union (e.g. over every BSGS plan of a context) keeps keygen from
+    over-generating switching keys."""
+    ts = {pow(5, r % params.slots, 2 * params.n) for r in rotations if r % params.slots}
+    if conjugate:
+        ts.add(2 * params.n - 1)
+    return tuple(sorted(ts))
+
+
+def full_keyset(params: CkksParams, seed: int = 0, rotations: tuple[int, ...] = (), conjugate: bool = False,
+                h: int | None = None, device="cuda") -> KeySet:
+    """Generate sk/pk/rlk plus exactly one Galois key per needed element, on ``device``."""
     sk = keygen(params, seed, h=h, device=device)
     pk = pkgen(params, sk, seed + 1)
     rlk = relin_keygen(params, sk, seed + 2)
-    return KeySet(sk=sk, pk=pk, rlk=rlk)
+    gks = {t: galois_keygen(params, sk, t, seed + 100) for t in galois_elements(params, rotations, conjugate)}
+    return KeySet(sk=sk, pk=pk, rlk=rlk, gks=gks)

@@ -23,12 +23,16 @@ Two pipeline shapes execute the same math:
 ``backend`` selects the pipeline: "fused"/"kernel" → fused, "staged"/"ref" →
 staged, "auto" → fused on the card and staged on the CPU.  Which code runs each
 stage is decided by the tensors' device alone: the plain PyTorch version on the
-CPU, the CUDA kernel on the card.  The staged pipeline needs a BConv kernel,
-which the card does not have yet, so on the card it raises.
+CPU, the CUDA kernel on the card.
+
+The hoisted (Halevi–Shoup) helpers at the end split a rotation's key-switch
+into a ModUp shared by every rotation of one ciphertext and a per-rotation
+MAC + ModDown (``repro_torch.kernels.hoistrot``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -36,11 +40,12 @@ import torch
 
 from repro_torch.kernels.bconv import ops as bconv_ops
 from repro_torch.kernels.fusedks import ops as fused_ops
+from repro_torch.kernels.hoistrot import ops as hoist_ops
 from repro_torch.kernels.modops import ops as mo
 from repro_torch.kernels.ntt import ops as ntt_ops
 
 from . import poly, rns, trace
-from .keys import SwitchingKey
+from .keys import KeySet, SwitchingKey
 from .params import CkksParams
 
 
@@ -227,3 +232,201 @@ def key_switch_accumulate(d_eval, params: CkksParams, level: int, ksk_sel, backe
         acc0 = mo.pointwise_addmod(acc0, t0, ext_primes)
         acc1 = mo.pointwise_addmod(acc1, t1, ext_primes)
     return acc0, acc1
+
+
+# ---------------------------------------------------------------------------
+# hoisted (Halevi–Shoup) rotation key-switching
+# ---------------------------------------------------------------------------
+#
+# The ModUp half of a key-switch (iNTT → digit decompose → prescale → BConv →
+# NTT into the extended basis) depends only on the input polynomial — never on
+# the Galois element — so k rotations of the same ciphertext can share ONE
+# ModUp and pay only KSK-MAC + ModDown each: O(β + k) forward NTTs through the
+# extended basis instead of O(k·β).
+#
+# The automorphism is folded instead of applied per digit: with keys
+# pre-permuted by σ_t^{-1} (cached per KeySet in ``hoisted_ksk``),
+#
+#   KS(σ_t(d)) = σ_t( ModDown( Σ_j D_j(d) ∘ σ_t^{-1}(ksk_j) ) )
+#
+# because σ_t commutes exactly (per residue) with every stage: it is a pure
+# slot permutation in the eval domain, a signed coefficient permutation in the
+# coefficient domain, and every ModUp/ModDown stage is a per-coefficient-index
+# linear map over the limbs.  So the whole MAC + ModDown runs in the σ_t^{-1}
+# frame and ONE permutation per output component lands the result — that
+# single AUTO also absorbs the σ_t(c0) term: the final ciphertext is
+# (σ_t(c0 + ks0'), σ_t(ks1')).
+
+
+@dataclasses.dataclass
+class HoistedDigits:
+    """Reusable ModUp decomposition of one eval-domain polynomial.
+
+    ``digits`` is (β, m, N) int32 over the extended basis (eval domain) —
+    the rotation-independent half of a key-switch, shared by every rotation
+    of a hoisted group.
+    """
+
+    digits: torch.Tensor
+    level: int
+
+    @property
+    def beta(self) -> int:
+        return int(self.digits.shape[0])
+
+
+def _record_modup_digits(params: CkksParams, level: int) -> None:
+    """Trace the fused ModUp pipeline (planner ``mod_up(fused=True)``)."""
+    n = params.n
+    m = len(poly.ext_idx(params, level))
+    for j in range(params.beta(level)):
+        k = len(tuple(i for i in params.digit(j) if i <= level))
+        trace.record("PMULT", n, k, fused=True)
+        trace.record("BCONV", n, k, dst=m, fused=True)
+        trace.record("NTT", n, m, fused=True)
+
+
+def hoisted_mod_up(d_eval, params: CkksParams, level: int, backend: str = "auto") -> HoistedDigits:
+    """ModUp once: d (eval, q_0..q_ℓ) → reusable extended-basis digits.
+
+    The returned digits are materialised (they round-trip to the later MAC
+    launches — the trace carries one STORE_WS/LOAD_WS pair of β·m limbs),
+    amortising the β forward NTTs across every rotation that reuses them.
+    """
+    pipeline, _ = resolve_pipeline(backend, d_eval.device)
+    n = params.n
+    beta = params.beta(level)
+    ext = poly.ext_idx(params, level)
+    m = len(ext)
+    d_coeff = poly.to_coeff(d_eval, params, poly.q_idx(params, level))
+
+    if pipeline == "fused":
+        _record_modup_digits(params, level)
+        digits = hoist_ops.mod_up_digits(d_coeff, params, level)
+    else:
+        rows = []
+        for j in range(beta):
+            digit_idx, bhat_inv, w, dst = _digit_tables(params, level, j)
+            k = len(digit_idx)
+            src = poly.primes_for(params, digit_idx)
+            dj = d_coeff[digit_idx[0] : digit_idx[-1] + 1]
+            xhat = _scale_limbs(dj, bhat_inv, src)
+            _boundary(n, k)
+            trace.record("BCONV", n, k, dst=m)
+            dj_ext = bconv_ops.bconv(xhat, w, dst)
+            _boundary(n, m)
+            rows.append(poly.to_eval(dj_ext, params, ext))
+        digits = torch.stack(rows)
+    _boundary(n, beta * m)  # hoisted digits round-trip to the MAC launches
+    return HoistedDigits(digits=digits, level=level)
+
+
+# Each cached entry is a full (β, 2, m, N) key copy — comparable to the
+# level-restricted key itself — so the per-KeySet cache is LRU-bounded BY
+# BYTES (an entry count would still admit ~β·m·N-sized blowups at production
+# parameters: one N=2^16 deep entry is >100 MB).  An entry larger than the
+# whole budget is simply not cached.
+HOIST_KSK_CACHE_BYTES = 256 * 2**20
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def hoisted_ksk(params: CkksParams, keys: KeySet, t: int, level: int):
+    """σ_t^{-1}-pre-permuted Galois key, restricted to the active basis.
+
+    (β, 2, m, N) int32 — LRU-cached per KeySet/(t, level): the permutation
+    is a keygen-time precompute, not per-rotation work (no trace records).
+    """
+    cache = keys.hoist_cache
+    hit = cache.get((t, level))
+    if hit is not None:
+        cache[(t, level)] = cache.pop((t, level))  # move to MRU position
+        return hit
+    sel = _select_ksk(keys.galois(t), params, level, params.beta(level))
+    tinv = pow(t, -1, 2 * params.n)
+    pre = torch.index_select(sel, -1, poly.eval_perm(params.n, tinv, sel.device))
+    if _nbytes(pre) <= HOIST_KSK_CACHE_BYTES:
+        while cache and sum(_nbytes(v) for v in cache.values()) + _nbytes(pre) > HOIST_KSK_CACHE_BYTES:
+            cache.pop(next(iter(cache)))  # evict LRU (dicts preserve insertion order)
+        cache[(t, level)] = pre
+    return pre
+
+
+def hoisted_galois_ks(hd: HoistedDigits, ksk_stack, params: CkksParams, level: int, backend: str = "auto"):
+    """KSK inner products for a whole rotation group, σ_t^{-1} frame.
+
+    ksk_stack: (R, β, 2, m, N) pre-permuted key limbs (``hoisted_ksk``).
+    Returns (R, 2, m, N) accumulator pairs; the fused pipeline issues ONE
+    batched MAC launch that reads the hoisted digits once.
+    """
+    pipeline, _ = resolve_pipeline(backend, hd.digits.device)
+    n = params.n
+    beta = params.beta(level)
+    m = int(hd.digits.shape[1])
+    fused = pipeline == "fused"
+    for _ in range(ksk_stack.shape[0]):
+        trace.record("LOAD_KSK", n, beta * 2 * m)
+        for _j in range(beta):
+            trace.record("PMULT", n, 2 * m, mac=True, fused=fused)
+            if not fused:
+                _boundary(n, 2 * m)
+            trace.record("PADD", n, 2 * m, mac=True, fused=fused)
+    return hoist_ops.galois_mac(hd.digits, ksk_stack, params, level, staged=not fused)
+
+
+def mod_down_group(accs, params: CkksParams, level: int, backend: str = "auto"):
+    """ModDown every accumulator pair of a hoisted group.
+
+    accs: (R, 2, m, N) → (R, 2, level+1, N).  The fused pipeline batches all
+    2·R tails through ONE P-block iNTT + ONE ModDown launch.
+    """
+    pipeline, _ = resolve_pipeline(backend, accs.device)
+    nrot = accs.shape[0]
+    if pipeline != "fused":
+        return torch.stack([
+            torch.stack([mod_down(accs[i, c], params, level) for c in range(2)])
+            for i in range(nrot)
+        ])
+    nq = level + 1
+    for _ in range(2 * nrot):
+        _record_fused_moddown(params, level)
+    p_part = accs[:, :, nq:].reshape(2 * nrot, params.alpha, params.n)
+    p_coeff = ntt_ops.ntt_inv(p_part, poly.plan_for(params, poly.p_idx(params)))
+    q_part = accs[:, :, :nq].reshape(2 * nrot, nq, params.n)
+    out = fused_ops.mod_down_digits(p_coeff, q_part, params, level)
+    return out.reshape(nrot, 2, nq, params.n)
+
+
+def permute_last(c0_eval, ks0, ks1, t: int, params: CkksParams, level: int):
+    """The shared rotation epilogue: c0 + ks0, then ONE σ_t per component.
+
+    ``ks0``/``ks1`` come from a key-switch against the σ_t^{-1}-pre-permuted
+    key (``hoisted_ksk``), so the single automorphism here lands the rotated
+    ciphertext — it also absorbs the σ_t(c0) term.  Every rotation path
+    (standard, single-hoisted, group-hoisted) MUST end through this helper:
+    the trace shape ([PADD, AUTO, AUTO], matching the planner) and the
+    bit-exactness of hoisted vs standard both hang on the three paths doing
+    literally the same thing.
+    """
+    n = params.n
+    qs = params.q_primes[: level + 1]
+    trace.record("PADD", n, level + 1)
+    s0 = mo.pointwise_addmod(c0_eval, ks0, qs)
+    return poly.automorphism_eval(s0, n, t), poly.automorphism_eval(ks1, n, t)
+
+
+def rotate_hoisted(c0_eval, hd: HoistedDigits, t: int, keys: KeySet, params: CkksParams, level: int,
+                   backend: str = "auto"):
+    """One key-switched automorphism σ_t over a hoisted decomposition.
+
+    Runs only KSK-MAC + ModDown (+ the folded automorphism) — the expensive
+    ModUp was paid once when ``hd`` was built.  Returns the rotated
+    ciphertext's (c0, c1) eval-domain polynomials, bit-exact against the
+    un-hoisted rotation.
+    """
+    ksk_stack = hoisted_ksk(params, keys, t, level)[None]
+    accs = hoisted_galois_ks(hd, ksk_stack, params, level, backend)
+    ks = mod_down_group(accs, params, level, backend)
+    return permute_last(c0_eval, ks[0, 0], ks[0, 1], t, params, level)

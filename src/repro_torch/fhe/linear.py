@@ -1,0 +1,219 @@
+"""Homomorphic linear transforms via the BSGS diagonal method.
+
+M·v = Σ_g rot_{g·n1}( Σ_b  rot_{-g·n1}(diag_{g·n1+b}(M)) ∘ rot_b(v) )
+
+Baby rotations rot_b(v) are shared across giants, so an n×n dense transform
+costs ≈ 2√n key-switched rotations + n plaintext multiplies — the dominant
+workload of CoeffToSlot/SlotToCoeff in bootstrapping (paper §3.3: rotation-
+heavy deep pipelines).
+
+Execution policy comes from ``repro_torch.fhe.context.FheContext`` —
+``ctx.apply_bsgs``/``ctx.plan_matrix`` are the primary API, and
+``plan_matrix`` picks the baby-step count n1 from a hoisting-aware cost model
+(under hoisting, baby steps are nearly free — see ``choose_n1``).  Planning is
+numpy on the host; the diagonals are encoded on the context's device when a
+transform is applied.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+from . import ops
+from .params import CkksParams
+
+
+@dataclasses.dataclass
+class BsgsPlan:
+    n1: int  # baby-step count
+    diags: dict[int, np.ndarray]  # d → diag_d(M) (length n complex)
+    _rot_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+
+    def baby_steps(self) -> tuple[int, ...]:
+        """Sorted non-zero baby rotations {d mod n1} — one hoisting group."""
+        hit = self._rot_cache.get("babies")
+        if hit is None:
+            hit = tuple(sorted({d % self.n1 for d in self.diags} - {0}))
+            self._rot_cache["babies"] = hit
+        return hit
+
+    def giant_steps(self) -> tuple[int, ...]:
+        """Sorted non-zero giant rotations {(d // n1) · n1}."""
+        hit = self._rot_cache.get("giants")
+        if hit is None:
+            hit = tuple(sorted({(d // self.n1) * self.n1 for d in self.diags} - {0}))
+            self._rot_cache["giants"] = hit
+        return hit
+
+    def rotations(self) -> frozenset[int]:
+        """Slot rotations whose Galois keys the transform needs (cached —
+        keygen and every apply call share one computation)."""
+        hit = self._rot_cache.get("all")
+        if hit is None:
+            hit = frozenset(self.baby_steps()) | frozenset(self.giant_steps())
+            self._rot_cache["all"] = hit
+        return hit
+
+
+# ---------------------------------------------------------------------------
+# BSGS planning: the hoisting-aware n1 cost model
+# ---------------------------------------------------------------------------
+
+
+def bsgs_rotation_cost(diag_indices, n1: int, params: CkksParams, level: int,
+                       hoisted: bool) -> float:
+    """Key-switch cost of a BSGS split, in limb-NTT-equivalents.
+
+    The model counts the (i)NTT limb-transforms each rotation path issues —
+    the planner's own instruction shapes, collapsed to the dominant unit:
+
+      * a full key-switched rotation (unhoisted baby, or any giant — giants
+        act on *different* partial sums, so they can never share a ModUp):
+        ModUp (1 iNTT over nq limbs + β forward NTTs over m = nq+α limbs)
+        plus two ModDown tails (each α iNTT + nq NTT limbs);
+      * a hoisted baby: only the two ModDown tails — the group's single ModUp
+        is charged once.
+
+    Plaintext multiplies are diagonal-count work, identical for every n1, so
+    they cancel out of the argmin and are omitted.
+    """
+    nq = level + 1
+    alpha = params.alpha
+    beta = params.beta(level)
+    m = nq + alpha
+    full = nq + beta * m + 2 * (alpha + nq)  # ModUp + 2× ModDown
+    baby_hoisted = 2 * (alpha + nq)  # MAC rides the exit; ModDown dominates
+    babies = len({d % n1 for d in diag_indices} - {0})
+    giants = len({(d // n1) * n1 for d in diag_indices} - {0})
+    if not hoisted:
+        return (babies + giants) * full
+    modup_once = nq + beta * m if babies else 0.0
+    return modup_once + babies * baby_hoisted + giants * full
+
+
+def choose_n1(diag_indices, params: CkksParams, level: int, hoisted: bool) -> int:
+    """Baby-step count minimising the rotation cost model over powers of two.
+
+    Without hoisting the optimum sits at the classic ≈ √(#diags) balance
+    point.  With hoisting, baby steps cost only a ModDown each (the ModUp is
+    shared), so the optimum shifts toward more babies / fewer giants — e.g.
+    the radix-32 CtS stage (63 diagonals) moves from n1 = 8 to n1 = 16.
+    """
+    diag_indices = tuple(diag_indices)
+    if not diag_indices:
+        return 1
+    top = 1 << max(0, (max(diag_indices)).bit_length())
+    candidates = []
+    n1 = 1
+    while n1 <= max(2, top):
+        candidates.append(n1)
+        n1 <<= 1
+    return min(
+        candidates,
+        key=lambda c: (bsgs_rotation_cost(diag_indices, c, params, level, hoisted), c),
+    )
+
+
+def plan_matrix(m: np.ndarray, n1: int | None = None, tol: float = 0.0,
+                params: CkksParams | None = None, level: int | None = None,
+                hoisting: bool = False) -> BsgsPlan:
+    """Extract (optionally sparse) diagonals of an n×n matrix for BSGS.
+
+    n1 selection, in priority order: an explicit ``n1``; the hoisting-aware
+    cost model when ``params`` is given (``choose_n1`` — pass
+    ``hoisting=True`` when the transform will run under a hoisting policy);
+    otherwise the classic ≈ √n power of two.
+    """
+    n = m.shape[0]
+    assert m.shape == (n, n)
+    idx = np.arange(n)
+    diags = {}
+    mx = np.abs(m).max() or 1.0
+    for d in range(n):
+        u = m[idx, (idx + d) % n]
+        if tol == 0.0 or np.abs(u).max() > tol * mx:
+            diags[int(d)] = u.astype(np.complex128)
+    if n1 is None:
+        if params is not None:
+            n1 = choose_n1(diags, params, params.L if level is None else level, hoisting)
+        else:
+            n1 = max(1, 1 << int(round(math.log2(math.sqrt(n)))))  # ≈ √n, power of two
+    return BsgsPlan(n1=n1, diags=diags)
+
+
+def plan_diags(diags: dict[int, np.ndarray], params: CkksParams, level: int | None = None,
+               hoisting: bool = False, n1: int | None = None) -> BsgsPlan:
+    """BSGS plan straight from a diagonal dict (for banded transforms whose
+    dense matrix is too large to materialise), n1 from the cost model."""
+    if n1 is None:
+        n1 = choose_n1(diags, params, params.L if level is None else level, hoisting)
+    return BsgsPlan(n1=n1, diags=dict(diags))
+
+
+# ---------------------------------------------------------------------------
+# context implementations
+# ---------------------------------------------------------------------------
+
+
+def _apply_bsgs(ctx, ct: ops.Ciphertext, plan: BsgsPlan,
+                scale: float | None = None) -> ops.Ciphertext:
+    """Homomorphic M·v.  Consumes one level (single rescale at the end).
+
+    The policy's hoisting mode controls the baby-step rotations (the dominant
+    key-switch cost): "auto"/"always" share ONE ModUp across the whole baby
+    group (Halevi–Shoup; "auto" falls back to per-rotation key-switching when
+    the group has fewer than two rotations), "never" key-switches each baby
+    separately.  All modes are bit-exact against each other.  Giant-step
+    rotations apply to *different* ciphertexts (the per-group partial sums),
+    so they cannot share a ModUp and always run the standard path.
+    """
+    params = ctx.params
+    keys = ctx.require_keys()
+    hoisting = ctx.policy.hoisting
+    scale = params.scale if scale is None else scale
+    lv = ct.level
+
+    babies: dict[int, ops.Ciphertext] = {0: ct}
+    needed_b = plan.baby_steps()
+    if hoisting == "always" or (hoisting == "auto" and len(needed_b) >= 2):
+        babies.update(ops._rotate_hoisted_group(ctx, ct, needed_b, keys))
+    else:
+        for b in needed_b:
+            babies[b] = ops._rotate_standard(ctx, ct, b, keys)
+
+    by_giant: dict[int, list[int]] = {}
+    for d in plan.diags:
+        by_giant.setdefault(d // plan.n1, []).append(d)
+
+    total: ops.Ciphertext | None = None
+    for g, ds in sorted(by_giant.items()):
+        acc: ops.Ciphertext | None = None
+        for d in ds:
+            b = d % plan.n1
+            u = np.roll(plan.diags[d], g * plan.n1)  # pre-rotate the diagonal
+            pt = ops._encode(ctx, u, level=lv, scale=scale)
+            term = ops._mul_plain(ctx, babies[b], pt, rescale_after=False)
+            acc = term if acc is None else ops._add(ctx, acc, term)
+        if g:
+            acc = ops._rotate_standard(ctx, acc, g * plan.n1, keys)
+        total = acc if total is None else ops._add(ctx, total, acc)
+
+    return ops._rescale(ctx, total)
+
+
+def _real_part(ctx, ct: ops.Ciphertext) -> ops.Ciphertext:
+    """(ct + conj(ct)) / 2 — scale the ½ into the bookkeeping (free)."""
+    s = ops._add(ctx, ct, ops._conjugate(ctx, ct, ctx.require_keys()))
+    return ops.Ciphertext(s.c0, s.c1, s.level, s.scale * 2.0)
+
+
+def _imag_part(ctx, ct: ops.Ciphertext) -> ops.Ciphertext:
+    """(ct − conj(ct)) / 2i — fold 1/(2i) into a plaintext mul."""
+    d = ops._sub(ctx, ct, ops._conjugate(ctx, ct, ctx.require_keys()))
+    return ops._mul_const(ctx, d, -0.5j, rescale_after=True)
+

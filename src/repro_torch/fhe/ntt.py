@@ -118,3 +118,15 @@ def subplan(n: int, primes: tuple[int, ...], idx: tuple[int, ...]) -> NttPlan:
         primes=tuple(base.primes[i] for i in idx),
         **{f: getattr(base, f)[sel] for f in _PER_LIMB_FIELDS},
     )
+
+
+def galois_eval_perm(n: int, t: int) -> np.ndarray:
+    """Permutation p with NTT(σ_t(a))[j] = NTT(a)[p[j]] (natural slot order).
+
+    σ_t : a(x) → a(x^t), t odd.  Slot j evaluates at psi^(2j+1), so
+    σ_t(a)(psi^(2j+1)) = a(psi^(t(2j+1))) = slot ((t(2j+1) mod 2N) - 1)/2 of a.
+    """
+    assert t % 2 == 1
+    j = np.arange(n, dtype=np.int64)
+    src = ((t * (2 * j + 1)) % (2 * n) - 1) // 2
+    return src.astype(np.int32)

@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels.modops import ops as mo
 
 from . import encoder, keyswitch, poly, trace
-from .keys import PublicKey, SecretKey, SwitchingKey
+from .keys import KeySet, PublicKey, SecretKey, SwitchingKey
 from .params import CkksParams
 
 
@@ -245,3 +245,104 @@ def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
         return mo.pointwise_mulmod(diff, qinv_t.expand(diff.shape), qs_rem)
 
     return Ciphertext(c0=_one(ct.c0), c1=_one(ct.c1), level=lv - 1, scale=ct.scale / q_last)
+
+
+# ---------------------------------------------------------------------------
+# rotations / conjugation
+# ---------------------------------------------------------------------------
+
+
+def _rotate(ctx, ct: Ciphertext, r: int, keys: KeySet) -> Ciphertext:
+    """Cyclic left-rotation of the slot vector by r (σ_{5^r} + key switch).
+
+    The policy's hoisting mode selects the key-switch shape: "never"/"auto"
+    run the standard per-rotation ModUp (a single rotation has nothing to
+    amortise); "always" routes through the hoisted path — bit-exact either
+    way.  Groups of rotations of the same ciphertext should use
+    ``rotate_hoisted_group`` to actually share the ModUp.
+    """
+    if r % ctx.params.slots == 0:
+        return ct
+    if ctx.policy.hoisting == "always":
+        return _rotate_hoisted(ctx, ct, r, keys)
+    return _rotate_standard(ctx, ct, r, keys)
+
+
+def _rotate_standard(ctx, ct: Ciphertext, r: int, keys: KeySet) -> Ciphertext:
+    """Per-rotation key switch regardless of the policy's hoisting mode —
+    the path for rotations of *distinct* ciphertexts (e.g. BSGS giant steps),
+    which can never share a ModUp."""
+    params = ctx.params
+    if r % params.slots == 0:
+        return ct
+    t = pow(5, r % params.slots, 2 * params.n)
+    return _apply_galois(ctx, ct, t, keys)
+
+
+def _rotate_hoisted(ctx, ct: Ciphertext, r: int, keys: KeySet,
+                    hoisted: keyswitch.HoistedDigits | None = None) -> Ciphertext:
+    """Hoisted rotation: reuse (or build) the ModUp decomposition of ct.c1.
+
+    Pass ``hoisted=keyswitch.hoisted_mod_up(ct.c1, ...)`` to amortise the
+    ModUp across several calls on the same ciphertext; each call then costs
+    only KSK-MAC + ModDown + one automorphism.  Bit-exact vs ``rotate``.
+    """
+    params = ctx.params
+    if r % params.slots == 0:
+        return ct
+    t = pow(5, r % params.slots, 2 * params.n)
+    hd = hoisted if hoisted is not None else keyswitch.hoisted_mod_up(ct.c1, params, ct.level, ctx.backend)
+    c0, c1 = keyswitch.rotate_hoisted(ct.c0, hd, t, keys, params, ct.level, ctx.backend)
+    return Ciphertext(c0=c0, c1=c1, level=ct.level, scale=ct.scale)
+
+
+def _rotate_hoisted_group(ctx, ct: Ciphertext, rots, keys: KeySet) -> dict[int, Ciphertext]:
+    """Halevi–Shoup hoisting: ONE ModUp shared by every rotation in ``rots``.
+
+    The fused pipeline batches the whole group: one ModUp launch, one Galois
+    KSK-MAC launch covering every rotation's key, and one batched ModDown
+    launch — O(β + k) extended-basis NTTs for k rotations instead of O(k·β).
+    Returns {r: rotated ciphertext} keyed by the input rotation values; each
+    entry is bit-exact vs ``rotate``.
+    """
+    params = ctx.params
+    backend = ctx.backend
+    uniq: dict[int, int] = {}  # r mod slots → galois element
+    for r in rots:
+        rm = r % params.slots
+        if rm and rm not in uniq:
+            uniq[rm] = pow(5, rm, 2 * params.n)
+    if not uniq:
+        return {r: ct for r in rots}
+    lv = ct.level
+    hd = keyswitch.hoisted_mod_up(ct.c1, params, lv, backend)
+    ksk_stack = torch.stack([keyswitch.hoisted_ksk(params, keys, t, lv) for t in uniq.values()])
+    accs = keyswitch.hoisted_galois_ks(hd, ksk_stack, params, lv, backend)
+    ks = keyswitch.mod_down_group(accs, params, lv, backend)
+    by_rm: dict[int, Ciphertext] = {}
+    for i, (rm, t) in enumerate(uniq.items()):
+        c0, c1 = keyswitch.permute_last(ct.c0, ks[i, 0], ks[i, 1], t, params, lv)
+        by_rm[rm] = Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)
+    return {r: (by_rm[r % params.slots] if r % params.slots else ct) for r in rots}
+
+
+def _conjugate(ctx, ct: Ciphertext, keys: KeySet) -> Ciphertext:
+    return _apply_galois(ctx, ct, 2 * ctx.params.n - 1, keys)
+
+
+def _apply_galois(ctx, ct: Ciphertext, t: int, keys: KeySet) -> Ciphertext:
+    """Key-switched automorphism σ_t, permute-last formulation.
+
+    The key-switch runs against the σ_t^{-1}-pre-permuted Galois key and the
+    shared ``keyswitch.permute_last`` epilogue lands the result.  This is the
+    same per-digit math as the hoisted path, so ``rotate`` and
+    ``rotate_hoisted``/``rotate_hoisted_group`` are bit-exact against each
+    other, and the trace shape matches the classic permute-first pipeline
+    (2×AUTO + key-switch + PADD).
+    """
+    params = ctx.params
+    lv = ct.level
+    ksk_pre = keyswitch.hoisted_ksk(params, keys, t, lv)
+    ks0, ks1 = keyswitch.key_switch_selected(ct.c1, params, lv, ksk_pre, ctx.backend)
+    c0, c1 = keyswitch.permute_last(ct.c0, ks0, ks1, t, params, lv)
+    return Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)

@@ -65,6 +65,22 @@ def to_coeff(x: torch.Tensor, params: CkksParams, idx: tuple[int, ...]) -> torch
     return ntt_ops.ntt_inv(x, plan_for(params, idx))
 
 
+@functools.lru_cache(maxsize=512)
+def _eval_perm(n: int, t: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(nttmod.galois_eval_perm(n, t).astype(np.int64)).to(device)
+
+
+def eval_perm(n: int, t: int, device) -> torch.Tensor:
+    """The slot permutation of σ_t (``fhe.ntt.galois_eval_perm``) as an index tensor on ``device``."""
+    return _eval_perm(n, t, torch.device(device))
+
+
+def automorphism_eval(x: torch.Tensor, n: int, t: int) -> torch.Tensor:
+    """σ_t in the evaluation domain — a pure slot permutation (the paper's AUTO unit)."""
+    trace.record("AUTO", n, x.shape[-2] if x.dim() >= 2 else 1)
+    return torch.index_select(x, -1, eval_perm(n, t, x.device))
+
+
 def sample_ternary(rng: np.random.Generator, n: int, h: int) -> np.ndarray:
     """Ternary secret with hamming weight h (int64 coefficients in {-1,0,1})."""
     s = np.zeros(n, np.int64)

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("modops.cu", "ntt.cu", "fusedks.cu")
+SOURCES = ("modops.cu", "ntt.cu", "fusedks.cu", "bconv.cu", "hoistrot.cu")
 
 
 def _nvcc() -> str:
@@ -81,7 +81,7 @@ def build_all(sources=SOURCES) -> dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _library(source: str) -> ctypes.CDLL:
+def library(source: str) -> ctypes.CDLL:
     path = library_path(source)
     if not path.exists():
         build_all((source,))
@@ -100,7 +100,7 @@ class CudaKernel:
 
     @functools.cached_property
     def _fn(self):
-        fn = getattr(_library(self.source), self.symbol)
+        fn = getattr(library(self.source), self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         return fn

@@ -1,6 +1,6 @@
 """Kernel-dispatch counting — the measurable half of the fusion story.
 
-Every public op wrapper (ntt, bconv, modops, fusedks) records one dispatch per
+Every public op wrapper (ntt, bconv, modops, fusedks, hoistrot) records one dispatch per
 device-kernel launch it issues.  The fused key-switch pipeline's whole point is
 collapsing the staged per-digit launch train (prescale, BConv, NTT, two MACs,
 two accumulates — each a separate launch whose intermediates round-trip through

@@ -1,21 +1,31 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test needs a CUDA card, ``nvcc`` and sm_90a (an H100): each skips inside
-the ``card`` fixture where there is none.  Run them on the card with
+the ``card`` fixture where there is none.  The last tests run the rotation
+slice end to end on the card against the reference digests of
+``chip_smoke.py``.  Run them on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.fhe import keys as K
+from repro_torch.fhe import linear
 from repro_torch.fhe import ntt as nttmod
 from repro_torch.fhe import params as P
-from repro_torch.fhe import poly
+from repro_torch.fhe import poly, rns
 from repro_torch.fhe.context import ExecPolicy, FheContext
+from repro_torch.kernels.bconv import ops as bops
+from repro_torch.kernels.bconv import ref as bref
 from repro_torch.kernels.fusedks import ops as fops
 from repro_torch.kernels.fusedks import ref as fref
+from repro_torch.kernels.hoistrot import ops as hops
+from repro_torch.kernels.hoistrot import ref as href
 from repro_torch.kernels.modops import ops as mops
 from repro_torch.kernels.modops import ref as mref
 from repro_torch.kernels.ntt import ops as nops
@@ -92,3 +102,97 @@ def test_mul_on_the_card_equals_the_cpu(card):
         ct = ctx.encrypt(ctx.encode(z))
         outs.append(ctx.mul(ct, ct))
     assert torch.equal(outs[0].c0.cpu(), outs[1].c0) and torch.equal(outs[0].c1.cpu(), outs[1].c1)
+
+
+@pytest.mark.parametrize("name", ["matmul", "lola_mnist_plain", "lstm"])
+def test_bconv_kernel_matches_plain(card, name):
+    p = P.workload_params(name)
+    before = bops.KERNEL.launches
+    for level in sorted({p.L, 1}):
+        dst = poly.primes_for(p, poly.ext_idx(p, level))
+        for j in range(p.beta(level)):
+            src = poly.primes_for(p, tuple(i for i in p.digit(j) if i <= level))
+            _, w = rns.bconv_tables(src, dst)
+            x = _residues((len(src), p.n), src, level + j, card)
+            assert torch.equal(bops.bconv(x, w, dst), bref.bconv_ref(x, w, dst))
+    torch.cuda.synchronize()
+    assert bops.KERNEL.launches > before
+
+
+@pytest.mark.parametrize("name", ["lola_mnist_plain", "lstm"])
+def test_hoist_kernels_match_plain(card, name):
+    p = P.workload_params(name)
+    for level in sorted({p.L, p.alpha - 1, 1}):
+        ext = poly.primes_for(p, poly.ext_idx(p, level))
+        beta, m = p.beta(level), len(ext)
+        d = _residues((level + 1, p.n), p.q_primes[: level + 1], level, card)
+        dig = hops.mod_up_digits(d, p, level)
+        assert torch.equal(dig, href.mod_up_digits_ref(d, p, level))
+        for nrot in (1, 3):
+            ksk = _residues((nrot * beta * 2 * m, p.n), ext * (nrot * beta * 2), nrot, card)
+            ksk = ksk.reshape(nrot, beta, 2, m, p.n)
+            assert torch.equal(hops.galois_mac(dig, ksk, p, level), href.galois_mac_ref(dig, ksk, p, level))
+
+
+
+def test_hoist_mac_is_built_for_every_preset_digit_count(card):
+    top = {name: P.workload_params(name) for name in P.WORKLOAD_PRESETS}
+    assert max(p.beta(p.L) for p in top.values()) == hops.max_beta()
+    p = top["lola_cifar_plain"]  # the preset with the most digits
+    level = p.L
+    ext = poly.primes_for(p, poly.ext_idx(p, level))
+    beta, m = p.beta(level), len(ext)
+    dig = _residues((beta * m, p.n), ext * beta, 0, card).reshape(beta, m, p.n)
+    ksk = _residues((2 * beta * 2 * m, p.n), ext * (2 * beta * 2), 1, card).reshape(2, beta, 2, m, p.n)
+    assert torch.equal(hops.galois_mac(dig, ksk, p, level), href.galois_mac_ref(dig, ksk, p, level))
+
+
+def test_staged_pipeline_and_rotations_on_the_card_equal_the_cpu(card):
+    p = P.make_params(1 << 9, 5, 2, check_security=False)
+    z = np.random.default_rng(0).normal(size=p.slots) * 0.4
+    plan = linear.plan_diags({d: np.full(p.slots, 0.1 * (d + 1)) for d in (0, 1, 2, 9, 17)}, p, hoisting=True)
+    outs = []
+    for device, backend in ((card, "staged"), (card, "fused"), ("cpu", "ref")):
+        ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=tuple(plan.rotations()) + (3,),
+                                                      conjugate=True, device=device),
+                         policy=ExecPolicy(backend=backend), device=device)
+        ct = ctx.encrypt(ctx.encode(z))
+        g = ctx.rotate_hoisted_group(ct, (1, 2, 3))
+        cts = [ctx.mul(ct, ct), g[1], g[2], g[3], ctx.rotate(ct, 3), ctx.conjugate(ct), ctx.apply_bsgs(ct, plan),
+               ctx.with_policy(hoisting="never").apply_bsgs(ct, plan)]
+        outs.append([(c.c0.cpu(), c.c1.cpu()) for c in cts])
+    for got in outs[:2]:
+        for (a0, a1), (b0, b1) in zip(got, outs[2]):
+            assert torch.equal(a0, b0) and torch.equal(a1, b1)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_lola_mnist_mlp_digests_on_the_card(card):
+    cs = _chip_smoke()
+    p = P.workload_params(cs.MLP["preset"])
+    model = cs.mlp_model(p)
+    plan1 = linear.plan_matrix(model["m1"], tol=1e-12, params=p, level=p.L, hoisting=True)
+    plan2 = linear.plan_matrix(model["m2"], tol=1e-12, params=p, level=p.L - 2, hoisting=True)
+    rots = tuple(sorted(plan1.rotations() | plan2.rotations()))
+    ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=rots, device=card), device=card)
+    ct1 = ctx.apply_bsgs(ctx.encrypt(ctx.encode(model["x_slots"])), plan1)
+    ct3 = ctx.apply_bsgs(ctx.square(ct1), plan2)
+    assert (cs.digest(ct1), cs.digest(ct3)) == (cs.MLP["ct1"], cs.MLP["ct3"])
+    assert np.max(np.abs(ctx.decrypt_decode(ct3).real[:4] - model["want"])) <= cs.MLP["max_err"]
+
+
+def test_lstm_hoisted_group_digest_on_the_card(card):
+    cs = _chip_smoke()
+    ref = cs.LSTM_GROUP
+    p = P.workload_params(ref["preset"])
+    ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=ref["rotations"], device=card), device=card)
+    ct = ctx.encrypt(ctx.encode(np.random.default_rng(0).normal(size=p.slots) * 0.4))
+    g = ctx.rotate_hoisted_group(ct, ref["rotations"])
+    assert cs.digest(*(g[r] for r in ref["rotations"])) == ref["digest"]

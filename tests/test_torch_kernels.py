@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels against the reference
-package's refs: modops, NTT, BConv and the fused key-switch regions.
+package's refs: modops, NTT, BConv, the fused key-switch regions and the
+hoisted-rotation ModUp and Galois MAC.
 
 Inputs are made with numpy from fixed seeds and handed to both packages; every
 comparison is exact (RNS arithmetic has no rounding)."""
@@ -16,6 +17,7 @@ from repro.fhe import params as R_P
 from repro.fhe import poly as R_poly
 from repro.kernels.bconv import ref as R_bconv
 from repro.kernels.fusedks import ops as R_fops
+from repro.kernels.hoistrot import ref as R_hoistref
 from repro.kernels.modops import ref as R_mod
 from repro.kernels.ntt import ref as R_nttref
 from repro_torch.fhe import keyswitch as T_KS
@@ -25,6 +27,8 @@ from repro_torch.fhe import poly as T_poly
 from repro_torch.kernels import cuda, dispatch
 from repro_torch.kernels.bconv import ops as T_bconv
 from repro_torch.kernels.fusedks import ops as T_fops
+from repro_torch.kernels.hoistrot import ops as T_hops
+from repro_torch.kernels.hoistrot import ref as T_hoistref
 from repro_torch.kernels.modops import ops as T_mo
 from repro_torch.kernels.ntt import ops as T_nttops
 
@@ -84,9 +88,16 @@ def test_wrappers_never_fall_back_off_the_cpu():
         T_mo.pointwise_mulmod(a, a, qs)
     with pytest.raises(ValueError, match="CUDA"):
         T_nttops.ntt_fwd(a, T_ntt.build_plan(256, qs))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    with pytest.raises(ValueError, match="CUDA"):
         T_bconv.bconv(a, np.ones((2, 3), np.uint32), T_P.master_chain(3))
+    p = T_P.make_params(1 << 8, 2, 1, check_security=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        T_hops.mod_up_digits(torch.empty((3, 256), dtype=torch.int32, device="meta"), p, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        T_hops.galois_mac(torch.empty((1, 4, 256), dtype=torch.int32, device="meta"),
+                          torch.empty((1, 1, 2, 4, 256), dtype=torch.int32, device="meta"), p, 2)
     assert (T_mo.KERNEL.launches, T_nttops.KERNEL.launches) == launches
+    assert (T_bconv.KERNEL.launches, T_hops.HOIST_MODUP.launches, T_hops.HOIST_MAC.launches) == (0, 0, 0)
 
 
 def test_u32_tensor_keeps_bit_patterns():
@@ -214,3 +225,41 @@ def test_fused_tables_are_the_montgomery_forms_of_the_bconv_tables(ks_pair):
             for e, c in enumerate(ext):
                 assert int(w[s, e]) == (int(wj[r, e]) << 32) % c
             assert int(t["bh"][s]) == (int(bhat_inv[r]) << 32) % tp.q_primes[s]
+
+
+# ---------------------------------------------------------------------------
+# hoisted-rotation regions (mirrors the ref half of tests/test_hoisting.py)
+# ---------------------------------------------------------------------------
+
+
+def test_mod_up_digits_plain_matches_reference(ks_pair):
+    rp, tp, _ = ks_pair
+    for level in sorted({rp.L, rp.alpha - 1, min(rp.L, rp.alpha), 0}):
+        rng = np.random.default_rng(11 + level)
+        d = _residues(rng, (level + 1, rp.n), rp.q_primes[: level + 1])
+        with dispatch.count_dispatches() as c:
+            got = T_hops.mod_up_digits(_t(d), tp, level)
+        assert c == {"hoistmodup": 1}  # the plain version records nothing of its own
+        assert got.shape == (tp.beta(level), level + 1 + tp.alpha, tp.n)
+        _eq(got, R_hoistref.mod_up_digits_ref(jnp.asarray(d), rp, level))
+        _eq(T_hoistref.mod_up_digits_ref(_t(d), tp, level), R_hoistref.mod_up_digits_ref(jnp.asarray(d), rp, level))
+
+
+@pytest.mark.parametrize("nrot", [1, 3])
+def test_galois_mac_plain_matches_reference(ks_pair, nrot):
+    rp, tp, _ = ks_pair
+    for level in sorted({rp.L, rp.alpha - 1, 0}):
+        ext = R_poly.primes_for(rp, R_poly.ext_idx(rp, level))
+        beta, m = rp.beta(level), len(ext)
+        rng = np.random.default_rng(17 * nrot + level)
+        dig = _residues(rng, (beta * m, rp.n), ext * beta).reshape(beta, m, rp.n)
+        ksk = _residues(rng, (nrot * beta * 2 * m, rp.n), ext * (nrot * beta * 2)).reshape(nrot, beta, 2, m, rp.n)
+        want = R_hoistref.galois_mac_ref(jnp.asarray(dig), jnp.asarray(ksk), rp, level)
+        with dispatch.count_dispatches() as c:
+            got = T_hops.galois_mac(_t(dig), _t(ksk), tp, level)
+        assert c == {"hoistmac": 1}
+        _eq(got, want)
+        with dispatch.count_dispatches() as c:
+            staged = T_hops.galois_mac(_t(dig), _t(ksk), tp, level, staged=True)
+        assert c == {"mulmod": 2 * beta * nrot, "addmod": 2 * beta * nrot}  # one launch per MAC step
+        _eq(staged, want)
