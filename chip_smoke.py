@@ -8,9 +8,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths below give it — the CKKS multiply at the ``lstm``
-     (N = 2^16) and ``matmul`` (N = 2^13) presets, BConv on the staged
-     pipeline, the hoisted ModUp and Galois MAC at ``lstm`` and
-     ``lola_mnist_plain`` — bit-exact, launched, timed with CUDA events;
+     (N = 2^16) and ``matmul`` (N = 2^13) presets, with the rescale's 1-limb
+     NTT and a ragged-digit key-switch at ``lstm``, the MLP's widest NTT,
+     BConv on the staged pipeline, the hoisted ModUp and Galois MAC at
+     ``lstm`` and ``lola_mnist_plain`` — bit-exact, launched, timed with CUDA
+     events; the two-pass kernels (NTT, ``fused_ks``) print the thread
+     blocks their launcher starts per pass;
   3. run the paths through the public API, each with the launch counters set
      to 0 just before it and read just after, and check each against the
      reference package's SHA-256 digests, dispatch counts and decode errors,
@@ -171,9 +174,13 @@ def timed(steps: dict, label: str, fn):
     return out
 
 
-def device_busy(fn) -> tuple[float, float]:
-    """(ms the device spent in kernels and copies, wall ms) over one call of ``fn``
-    after a first call, from ``torch.profiler`` (the wall time includes its overhead)."""
+def device_busy(fn) -> tuple[float, float, dict]:
+    """(ms the device spent in kernels and copies, wall ms, {device event name: ms})
+    over one call of ``fn`` after a first call, from ``torch.profiler`` (the wall
+    time includes its overhead).  The busy time sums the self device time of
+    every row of ``key_averages()``, as in earlier runs; the dict holds only the
+    rows of device events (kernels, copies), named without their arguments."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -183,8 +190,11 @@ def device_busy(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return busy_us / 1e3, wall
+    rows = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in rows)
+    by_name = {e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]:
+               e.self_device_time_total / 1e3 for e in rows if e.device_type == DeviceType.CUDA}
+    return busy_us / 1e3, wall, by_name
 
 
 def rand_residues(shape, primes, gen) -> torch.Tensor:
@@ -275,7 +285,7 @@ def main() -> int:
     gen.manual_seed(0)
     failures = []
 
-    def check(kname, case, kernel_fn, plain_fn, nbytes, ops):
+    def check(kname, case, kernel_fn, plain_fn, nbytes, ops, blocks=None):
         k = kernels[kname]["k"]
         before = k.launches
         got = kernel_fn()
@@ -292,20 +302,38 @@ def main() -> int:
         bms, by = bound(nbytes, ops)
         rec = dict(case=case, exact=exact, max_abs_err=err, launched=launched, kernel_ms=kms, call_ms=call_ms,
                    plain_ms=pms, bound_ms=bms, bound_by=by)
+        if blocks is not None:
+            rec["blocks_per_pass"] = list(blocks)
         kernels[kname]["cases"].append(rec)
+        grid = "" if blocks is None else f" blocks/pass {blocks[0]}+{blocks[1]}"
         print(f"  {kname:14s} {case:40s} exact={exact} launched={launched} kernel {kms:.4f} ms "
-              f"call {call_ms:.4f} ms plain {pms:.3f} ms bound {bms:.4f} ms ({by})")
+              f"call {call_ms:.4f} ms plain {pms:.3f} ms bound {bms:.4f} ms ({by}){grid}")
         if not exact or launched < 1:
             failures.append(f"{kname} {case}")
+
+    def check_ntt(case, kfn, pfn, x, plan):
+        n, l = x.shape[-1], x.shape[-2]
+        rows = x.numel() // n
+        check("ntt", case, lambda: kfn(x, plan), lambda: pfn(x, plan), (2 * rows + 2 * l) * n * WORD,
+              rows * ntt_ops_per_limb(n), blocks=nops.blocks_per_pass(rows, n))
+
+    def check_fused_ks(p, level, case):
+        n, beta = p.n, p.beta(level)
+        nq, m = level + 1, level + 1 + p.alpha
+        d = rand_residues((nq, n), poly.primes_for(p, poly.q_idx(p, level)), gen)
+        ksk = rand_residues((beta, 2, m, n), poly.primes_for(p, poly.ext_idx(p, level)), gen)
+        ks_ops = modup_ops(n, nq, m, beta * m) + beta * m * 2 * n * (MULMOD + ADDMOD)
+        check("fused_ks", f"{case} ksk {tuple(ksk.shape)}", lambda: fops.key_switch_digits(d, ksk, p, level),
+              lambda: fref.key_switch_digits_ref(d, ksk, p, level), (nq + 2 * beta * m + 2 * m + 2 * m) * n * WORD,
+              ks_ops, blocks=fops.ks_blocks_per_pass(beta, m, n))
 
     print("kernels vs plain versions:")
     for name in ("lstm", "matmul"):
         p = P.workload_params(name)
-        n, lv, alpha, beta = p.n, p.L, p.alpha, p.beta(p.L)
-        nq, m = lv + 1, lv + 1 + alpha
+        n, lv, alpha = p.n, p.L, p.alpha
+        nq = lv + 1
         qp = poly.primes_for(p, poly.q_idx(p, lv))
         pp = poly.primes_for(p, poly.p_idx(p))
-        ext = poly.primes_for(p, poly.ext_idx(p, lv))
         a, b = rand_residues((nq, n), qp, gen), rand_residues((nq, n), qp, gen)
         for op, kfn, pfn, opc in (("mul", mops.pointwise_mulmod, mref.mulmod_ref, MULMOD),
                                   ("add", mops.pointwise_addmod, mref.addmod_ref, ADDMOD),
@@ -314,22 +342,27 @@ def main() -> int:
                   3 * nq * n * WORD, nq * n * opc)
         qplan, pplan = poly.plan_for(p, poly.q_idx(p, lv)), poly.plan_for(p, poly.p_idx(p))
         xp = rand_residues((2, alpha, n), pp, gen)
+        ntt_cases = [(a, qplan), (xp, pplan)]
+        if name == "lstm":  # the rescale's 1-limb iNTT (and NTT) of the dropped limb
+            ntt_cases.append((a[lv:lv + 1], poly.plan_for(p, (lv,))))
         for inv, kfn, pfn in ((False, nops.ntt_fwd, nref.ntt_fwd_ref), (True, nops.ntt_inv, nref.ntt_inv_ref)):
             tag = "inv" if inv else "fwd"
-            for x, plan, rows, l in ((a, qplan, nq, nq), (xp, pplan, 2 * alpha, alpha)):
-                check("ntt", f"{name} {tag} {tuple(x.shape)}", lambda: kfn(x, plan), lambda: pfn(x, plan),
-                      (2 * rows + 2 * l) * n * WORD, rows * ntt_ops_per_limb(n))
-        d = rand_residues((nq, n), qp, gen)
-        ksk = rand_residues((beta, 2, m, n), ext, gen)
-        ks_ops = modup_ops(n, nq, m, beta * m) + beta * m * 2 * n * (MULMOD + ADDMOD)
-        check("fused_ks", f"{name} beta={beta} ksk {tuple(ksk.shape)}",
-              lambda: fops.key_switch_digits(d, ksk, p, lv), lambda: fref.key_switch_digits_ref(d, ksk, p, lv),
-              (nq + 2 * beta * m + 2 * m + 2 * m) * n * WORD, ks_ops)
+            for x, plan in ntt_cases:
+                check_ntt(f"{name} {tag} {tuple(x.shape)}", kfn, pfn, x, plan)
+        # the top level, and (lstm) a level whose last digit is ragged: 10 limbs in digits of 7
+        for level in (lv, 9) if name == "lstm" else (lv,):
+            check_fused_ks(p, level, f"{name} level={level} beta={p.beta(level)}")
         qpart = rand_residues((2, nq, n), qp, gen)
         md_ops = 2 * (modup_ops(n, alpha, nq, nq) + nq * n * (ADDMOD + MONTMUL))
         check("fused_moddown", f"{name} pc {tuple(xp.shape)} q {tuple(qpart.shape)}",
               lambda: fops.mod_down_digits(xp, qpart, p, lv), lambda: fref.mod_down_digits_ref(xp, qpart, p, lv),
               (2 * alpha + 2 * nq + 2 * nq + 2 * nq) * n * WORD, md_ops)
+
+    # the NTT at the MLP's widest shape: the 10 extended limbs of lola_mnist_plain's top level
+    mlp_ext = poly.ext_idx(mlp_p, mlp_p.L)
+    x = rand_residues((len(mlp_ext), mlp_p.n), poly.primes_for(mlp_p, mlp_ext), gen)
+    for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
+        check_ntt(f"{MLP['preset']} {tag} {tuple(x.shape)}", kfn, pfn, x, poly.plan_for(mlp_p, mlp_ext))
 
     # BConv at the staged pipeline's shapes: digit 0 → extended basis, and ModDown's P → q
     for name in ("lstm", "matmul", MLP["preset"]):
@@ -371,7 +404,7 @@ def main() -> int:
     # -- 3. the main path, through the public API --------------------------------
     print("main path (keygen, encode, encrypt, ctx.mul, decrypt, decode):")
     mul_kernels = ("modops", "ntt", "fused_ks", "fused_moddown")
-    main_launches, keysets = {}, {}
+    main_launches, keysets, mul_ctxs = {}, {}, {}
     for name in ("matmul", "lstm"):
         p = P.workload_params(name)
         reset_launches()
@@ -387,6 +420,7 @@ def main() -> int:
             out = timed(steps, "mul", lambda: ctx.mul(ct, ct))
         mul_launches = {k: v - before[k] for k, v in read_launches().items()}
         again = timed(steps, "mul again", lambda: ctx.mul(ct, ct))  # tables are built: steady state
+        mul_ctxs[name] = (ctx, ct)  # profiled after the checks
         dec = timed(steps, "decrypt", lambda: ctx.decrypt(out))
         got = timed(steps, "decode", lambda: ctx.decode(dec))
         main_launches[name] = read_launches()
@@ -533,14 +567,17 @@ def main() -> int:
         print("FAILED lstm group path: " + "; ".join(problems), file=sys.stderr)
         return 1
     for label, fn in (
+        *((f"{name} ctx.mul", lambda c=c, x=x: c.mul(x, x)) for name, (c, x) in mul_ctxs.items()),
         ("MLP (apply_bsgs, square, apply_bsgs)",
          lambda: mlp_ctx.apply_bsgs(mlp_ctx.square(mlp_ctx.apply_bsgs(mlp_ct, plan1)), plan2)),
         ("lstm group of 4", lambda: ctx.rotate_hoisted_group(ct, rotations)),
         ("lstm 4 rotates", four),
     ):
-        busy, wall = device_busy(fn)
+        busy, wall, by_name = device_busy(fn)
         print(f"  profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall under the profiler, "
               f"idle share {1 - busy / wall:.3f}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
 
     # -- 4. report ---------------------------------------------------------------
     # launches: from the path that carries the kernel at the lstm shape of its first case

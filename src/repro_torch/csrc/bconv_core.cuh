@@ -1,5 +1,6 @@
 // Fast basis conversion, shared by bconv.cu, fusedks.cu and hoistrot.cu: one
-// output coefficient (bconv_coeff), and one whole ModUp row (modup_row).
+// output coefficient (bconv_coeff), several at once (bconv_coeffs, fused_ks's
+// pass A), and one whole ModUp row (modup_row).
 //
 // Conv_{B→C}(x)[e, i] = Σ_s x̂_s[i]·(B̂_s mod c_e)  (mod c_e), with
 // x̂_s = x_s·[B̂_s^{-1}]_{b_s} mod b_s.  Every term is one montmul against the
@@ -32,6 +33,32 @@ __device__ __forceinline__ uint32_t bconv_coeff(const uint32_t* __restrict__ x, 
         y = addmod(y, montmul(xh, w_m[static_cast<size_t>(s) * m + e], c, cinv), c);
     }
     return y;
+}
+
+// bconv_coeff<true> for K coefficients i[0..K) of one target limb at once, into
+// y[0..K): the same terms, reduced and added in the same order, with the source
+// loop outermost so that a thread has K independent loads in flight.
+template <int K>
+__device__ __forceinline__ void bconv_coeffs(uint32_t* y, const uint32_t* __restrict__ x, const size_t* i, int n,
+                                             int lo, int hi, const uint32_t* __restrict__ bh_m,
+                                             const uint32_t* __restrict__ src_q,
+                                             const uint32_t* __restrict__ src_qinv,
+                                             const uint32_t* __restrict__ w_m, int m, int e, uint32_t c,
+                                             uint32_t cinv) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) y[k] = 0;
+    for (int s = lo; s < hi; ++s) {
+        const uint32_t* xs = x + static_cast<size_t>(s) * n;
+        const uint32_t bh = bh_m[s];
+        const uint32_t qs = src_q[s];
+        const uint32_t qsinv = src_qinv[s];
+        const uint32_t w = w_m[static_cast<size_t>(s) * m + e];
+        uint32_t v[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[k] = xs[i[k]];
+#pragma unroll
+        for (int k = 0; k < K; ++k) y[k] = addmod(y[k], montmul(montmul(v[k], bh, qs, qsinv), w, c, cinv), c);
+    }
 }
 
 // One ModUp row, run by the whole block: BConv of source rows [lo, hi) of x to

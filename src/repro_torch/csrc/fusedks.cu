@@ -1,75 +1,144 @@
-// The fused key-switch pipeline: prescale -> BConv -> NTT -> key MAC in one
-// launch, and the fused ModDown tail in a second.
+// The fused key-switch pipeline: prescale -> BConv -> NTT -> key MAC for
+// every digit (fused_ks, one C entry, two kernels), and the fused ModDown tail
+// (fused_moddown, one kernel).
 //
 // Replaces the Pallas kernels fused_ks_pallas and fused_moddown_pallas
 // (src/repro/kernels/fusedks/kernel.py:121, 178).  On the TPU the digit axis j
 // was the innermost sequential grid axis, accumulating through
-// pl.when(j == 0); blocks on Hopper run in no order, so here each block owns
-// one output limb and loops over the digits itself.  BConv is the shared
-// modup_row of bconv_core.cuh, which reduces every x̂_i·W[i, e] term mod
-// c_e before adding (the rule of src/repro/kernels/bconv/ref.py:28).  The TPU's 8-bit-limb MXU dots and its
-// zero-padded digit rows with the dummy modulus 3 have no place here: each
-// digit loops over its own limb count.  The NTT is the device function of
-// ntt.cu (ntt_core.cuh), so both kernels hold the working limb in shared
-// memory for N <= 2^15 and in a global row of their own for N = 2^16.
+// pl.when(j == 0).  BConv reduces every x̂_i·W[i, e] term mod c_e before
+// adding (the rule of src/repro/kernels/bconv/ref.py:28, bconv_core.cuh).
+// The TPU's 8-bit-limb MXU dots and its zero-padded digit rows with the dummy
+// modulus 3 have no place here: each digit loops over its own limb count.
 //
-// Bound on the H100: bytes.  fused_ks reads the digit limbs once per output
-// limb (m·k·N words through L2), the key (β·2·m·N words) and writes 2·m·N;
-// fused_moddown reads α + 1 limbs and writes one per block.  The NTT in the
-// middle costs ~N/2·log2(N) Montgomery multiplies per limb, well under the
-// integer rate.  The design keeps every intermediate of a digit out of device
-// memory below N = 2^16 and in L2 at it.  The grid is m blocks (4 at matmul,
-// 21 at lstm) for fused_ks and C·(level+1) for fused_moddown, on 132 SMs:
-// occupancy, not arithmetic, is what holds these kernels back.
+// fused_ks runs the two passes of ntt_passes.cuh, so that many blocks share
+// each (digit, extended limb) row:
+//   pass A, one block per (row j·m + e, column tile): the BConv of digit j's
+//     source limbs at the tile's coefficients (bconv_coeffs, each thread's 8
+//     coefficients at once so that 8 loads are in flight), the twist
+//     by psi_e, the N1-point column NTTs and the inter-pass twiddle, into a
+//     (β, m, N) scratch, which at lstm (11 MiB) stays in the 50 MB L2;
+//   pass B, one block per (limb e, row tile): for j = 0..β-1 the N2-point row
+//     NTTs of digit j's tile and the MAC with ksk[j, 0, e] and ksk[j, 1, e] at
+//     the natural-order positions, both sums in registers, so the TPU's
+//     sequential digit axis is a loop inside the block; out[e, 0] and
+//     out[e, 1] are written once, as 64-byte segments.
+// At lstm (β = 2, m = 21, N = 2^16) that is 672 blocks in pass A and 336 in
+// pass B, where the earlier design ran 21 blocks, each walking 2 digits'
+// NTTs through L2 in series.
+//
+// fused_moddown keeps one block per (accumulator, q limb), with the
+// one-block-per-limb modup_row of bconv_core.cuh / ntt_core.cuh: its working
+// limb is in shared memory for N <= 2^15 and in its own output row at 2^16.
+//
+// Bound on the H100: bytes.  fused_ks must read the digit limbs (nq·N
+// words), the key (β·2·m·N) and write 2·m·N; it rereads each source limb
+// once per extended limb from L2 and moves the scratch through L2 twice.  The
+// NTTs cost ~N/2·log2(N) Montgomery multiplies per row, under the integer
+// rate.  fused_moddown reads α + 1 limbs and writes one per block; its grid,
+// C·(level+1) blocks on 132 SMs, is what holds it back.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bconv_core.cuh"
 #include "ntt_core.cuh"
+#include "ntt_passes.cuh"
 
 namespace {
 
-// One block per extended limb e.  Tables (uint32, Montgomery where marked):
+// Tables (uint32, Montgomery where marked):
 //   d:        (nq, n)        coefficient-domain limbs of the polynomial to switch
 //   ext_q/ext_qinv/ext_r2: (m,) moduli of the extended basis q_0..q_level, p_0..p_{alpha-1};
 //                           source limb s < nq has modulus ext_q[s]
 //   bh_m:     (nq,)          [B̂_s^{-1}]_{q_s}·R, B̂ taken within the digit of s
 //   w_m:      (nq, m)        (B̂_s mod c_e)·R mod c_e
-//   psi_m, roots_m: (m, n)   forward twist and root powers of c_e, ·R
+//   psi_m, roots_m, tw_m: (m, n)  forward twist, root powers and inter-pass
+//                           twiddles (ntt_passes.cuh) of c_e, ·R
 //   ksk:      (beta, 2, m, n) switching key, eval domain
+//   scratch:  (beta, m, n)   pass A's output, pass B's input
 //   out:      (m, 2, n)      the two accumulators
-//   scratch:  (m, n) or null (then the limb lives in shared memory)
-__global__ void __launch_bounds__(NTT_THREADS)
-    fused_ks_kernel(const uint32_t* __restrict__ d, int nq, int alpha, int beta, const uint32_t* __restrict__ ext_q,
+// Pass A: block (column tile, row j·m + e).
+__global__ void __launch_bounds__(PASS_MAX_THREADS)
+    fused_ks_pass_a(const uint32_t* __restrict__ d, int nq, int alpha, const uint32_t* __restrict__ ext_q,
+                    const uint32_t* __restrict__ ext_qinv, const uint32_t* __restrict__ bh_m,
+                    const uint32_t* __restrict__ w_m, int m, const uint32_t* __restrict__ psi_m,
+                    const uint32_t* __restrict__ roots_m, const uint32_t* __restrict__ tw_m,
+                    uint32_t* __restrict__ scratch, int log_n) {
+    __shared__ uint32_t tile[PASS_TILE_WORDS];
+    __shared__ uint32_t sub[1 << (PASS_MAX_LOG_M - 1)];
+    const int log_n1 = pass_log_n1(log_n);
+    const int log_n2 = log_n - log_n1;
+    const int n = 1 << log_n;
+    const int row = blockIdx.y;
+    const int j = row / m;
+    const int e = row % m;
+    const int lo = j * alpha;
+    const int hi = min(lo + alpha, nq);
+    const uint32_t c = ext_q[e];
+    const uint32_t cinv = ext_qinv[e];
+    const uint32_t* psi = psi_m + static_cast<size_t>(e) * n;
+    const uint32_t* tw = tw_m + static_cast<size_t>(e) * n;
+    uint32_t* y = scratch + static_cast<size_t>(row) * n;
+    const int c0 = blockIdx.x * PASS_TILE;
+    load_sub_roots(sub, roots_m + static_cast<size_t>(e) * n, log_n1, log_n2);
+    __syncthreads();
+    dif_columns(
+        tile, PASS_TILE, 1, log_n1, sub, c, cinv,
+        [&](const int* pos, int col, uint32_t* v) {
+            size_t i[PASS_SLOTS];
+#pragma unroll
+            for (int x = 0; x < PASS_SLOTS; ++x) i[x] = (static_cast<size_t>(pos[x]) << log_n2) + c0 + col;
+            bconv_coeffs<PASS_SLOTS>(v, d, i, n, lo, hi, bh_m, ext_q, ext_qinv, w_m, m, e, c, cinv);
+#pragma unroll
+            for (int x = 0; x < PASS_SLOTS; ++x) v[x] = montmul(v[x], psi[i[x]], c, cinv);
+        },
+        [&](int pos, int col, int, uint32_t v) {
+            const size_t i = (static_cast<size_t>(rev_bits(pos, log_n1)) << log_n2) + c0 + col;
+            y[i] = montmul(v, tw[i], c, cinv);
+        });
+}
+
+// Pass B: block (row tile, extended limb e).
+__global__ void __launch_bounds__(PASS_MAX_THREADS)
+    fused_ks_pass_b(const uint32_t* __restrict__ scratch, int beta, int m, const uint32_t* __restrict__ ext_q,
                     const uint32_t* __restrict__ ext_qinv, const uint32_t* __restrict__ ext_r2,
-                    const uint32_t* __restrict__ bh_m, const uint32_t* __restrict__ w_m, int m,
-                    const uint32_t* __restrict__ psi_m, const uint32_t* __restrict__ roots_m,
-                    const uint32_t* __restrict__ ksk, uint32_t* __restrict__ out, uint32_t* scratch, int n,
-                    int log_n) {
-    const int e = blockIdx.x;
+                    const uint32_t* __restrict__ roots_m, const uint32_t* __restrict__ ksk,
+                    uint32_t* __restrict__ out, int log_n) {
+    __shared__ uint32_t tile[PASS_TILE_WORDS];
+    __shared__ uint32_t sub[1 << (PASS_MAX_LOG_M - 1)];
+    const int log_n1 = pass_log_n1(log_n);
+    const int log_n2 = log_n - log_n1;
+    const int n = 1 << log_n;
+    const int e = blockIdx.y;
     const uint32_t c = ext_q[e];
     const uint32_t cinv = ext_qinv[e];
     const uint32_t r2 = ext_r2[e];
-    uint32_t* buf = ntt_buffer(scratch != nullptr ? scratch + static_cast<size_t>(e) * n : nullptr);
-    uint32_t* acc0 = out + static_cast<size_t>(e) * 2 * n;
-    uint32_t* acc1 = acc0 + n;
-
+    const int r0 = blockIdx.x * PASS_TILE;
+    uint32_t* out0 = out + static_cast<size_t>(e) * 2 * n;
+    uint32_t* out1 = out0 + n;
+    uint32_t acc0[PASS_SLOTS];
+    uint32_t acc1[PASS_SLOTS];
+    load_sub_roots(sub, roots_m + static_cast<size_t>(e) * n, log_n2, log_n1);
     for (int j = 0; j < beta; ++j) {
-        const int lo = j * alpha;
-        const int hi = min(lo + alpha, nq);
-        modup_row(buf, d, n, log_n, lo, hi, bh_m, ext_q, ext_qinv, w_m, m, e, c, cinv, psi_m, roots_m);
-        // key MAC into both accumulators
+        if (j > 0) __syncthreads();  // digit j-1's last stages have read the tile
+        stage_rows(tile, scratch + (static_cast<size_t>(j) * m + e) * n, r0, log_n2);
+        __syncthreads();
         const uint32_t* k0 = ksk + (static_cast<size_t>(2 * j) * m + e) * n;
         const uint32_t* k1 = ksk + (static_cast<size_t>(2 * j + 1) * m + e) * n;
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const uint32_t yh = buf[i];
-            const uint32_t t0 = mulmod(yh, k0[i], c, cinv, r2);
-            const uint32_t t1 = mulmod(yh, k1[i], c, cinv, r2);
-            acc0[i] = j == 0 ? t0 : addmod(acc0[i], t0, c);
-            acc1[i] = j == 0 ? t1 : addmod(acc1[i], t1, c);
-        }
-        __syncthreads();  // the next digit overwrites buf
+        const bool last_digit = j == beta - 1;
+        dif_columns(
+            tile, 1, (1 << log_n2) + 1, log_n2, sub, c, cinv, staged_load(tile, log_n2),
+            [&](int pos, int col, int slot, uint32_t v) {
+                const size_t i = r0 + col + (static_cast<size_t>(rev_bits(pos, log_n2)) << log_n1);
+                const uint32_t t0 = mulmod(v, k0[i], c, cinv, r2);
+                const uint32_t t1 = mulmod(v, k1[i], c, cinv, r2);
+                acc0[slot] = j == 0 ? t0 : addmod(acc0[slot], t0, c);
+                acc1[slot] = j == 0 ? t1 : addmod(acc1[slot], t1, c);
+                if (last_digit) {
+                    out0[i] = acc0[slot];
+                    out1[i] = acc1[slot];
+                }
+            });
     }
 }
 
@@ -112,22 +181,38 @@ int set_smem(const void* kernel, int smem) {
 
 }  // namespace
 
-// scratch: (m, n) words, used only when n > SMEM_MAX_N.
-// Returns cudaGetLastError() after the launch.
+// scratch: (beta, m, n) words; n = 2^log_n with 8 <= log_n <= 16.
+// Returns cudaGetLastError() after the launches.
 extern "C" int fused_ks_launch(const void* d, int nq, int alpha, int beta, const void* ext_q, const void* ext_qinv,
                                const void* ext_r2, const void* bh_m, const void* w_m, int m, const void* psi_m,
-                               const void* roots_m, const void* ksk, void* out, void* scratch, int n, int log_n,
-                               void* stream) {
-    const int smem = ntt_smem_bytes(n);
-    if (const int err = set_smem(reinterpret_cast<const void*>(fused_ks_kernel), smem)) return err;
-    fused_ks_kernel<<<m, NTT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(d), nq, alpha, beta, static_cast<const uint32_t*>(ext_q),
+                               const void* roots_m, const void* tw_m, const void* ksk, void* out, void* scratch, int n,
+                               int log_n, void* stream) {
+    if (!pass_size_ok(log_n) || n != (1 << log_n) || beta < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const PassGrids ga = pass_grids(beta * m, log_n);
+    const PassGrids gb = pass_grids(m, log_n);
+    fused_ks_pass_a<<<ga.grid1, ga.block1, 0, s>>>(
+        static_cast<const uint32_t*>(d), nq, alpha, static_cast<const uint32_t*>(ext_q),
+        static_cast<const uint32_t*>(ext_qinv), static_cast<const uint32_t*>(bh_m), static_cast<const uint32_t*>(w_m),
+        m, static_cast<const uint32_t*>(psi_m), static_cast<const uint32_t*>(roots_m),
+        static_cast<const uint32_t*>(tw_m), static_cast<uint32_t*>(scratch), log_n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_ks_pass_b<<<gb.grid2, gb.block2, 0, s>>>(
+        static_cast<const uint32_t*>(scratch), beta, m, static_cast<const uint32_t*>(ext_q),
         static_cast<const uint32_t*>(ext_qinv), static_cast<const uint32_t*>(ext_r2),
-        static_cast<const uint32_t*>(bh_m), static_cast<const uint32_t*>(w_m), m,
-        static_cast<const uint32_t*>(psi_m), static_cast<const uint32_t*>(roots_m),
-        static_cast<const uint32_t*>(ksk), static_cast<uint32_t*>(out),
-        smem == 0 ? static_cast<uint32_t*>(scratch) : nullptr, n, log_n);
+        static_cast<const uint32_t*>(roots_m), static_cast<const uint32_t*>(ksk), static_cast<uint32_t*>(out), log_n);
     return static_cast<int>(cudaGetLastError());
+}
+
+// blocks[0], blocks[1]: the thread blocks fused_ks_launch starts for pass A and pass B.
+extern "C" int fused_ks_blocks(int beta, int m, int log_n, int* blocks) {
+    if (!pass_size_ok(log_n) || beta < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int b[2];
+    pass_block_counts(pass_grids(beta * m, log_n), blocks);
+    pass_block_counts(pass_grids(m, log_n), b);
+    blocks[1] = b[1];
+    return 0;
 }
 
 // Returns cudaGetLastError() after the launch.

@@ -1,6 +1,10 @@
-// Block-wide radix-2 NTT of one limb, shared by ntt.cu and fusedks.cu.
+// Block-wide radix-2 NTT of one limb: the NTT inside modup_row
+// (bconv_core.cuh), which fused_moddown (fusedks.cu) and hoist_modup
+// (hoistrot.cu) run.  The standalone NTT and fused_ks no longer use it: they
+// run the two-pass NTT of ntt_passes.cuh, many blocks per limb.
 //
-// One thread block owns one limb of N coefficients in `buf`, which is either
+// Bound on the H100: one block's latency, not bytes or operations.  One
+// thread block owns one limb of N coefficients in `buf`, which is either
 // dynamic shared memory (N <= SMEM_MAX_N) or a global-memory row that only
 // this block touches (N = 2^16: 256 KiB is more than the 227 KB of shared
 // memory a block can have, and the row stays in the 50 MB L2 between stages).

@@ -119,6 +119,15 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 
 
+def pass_blocks(source: str, symbol: str, *args: int) -> tuple[int, int]:
+    """The thread blocks of the two passes a two-pass launcher of ``source``
+    starts, as its C function ``symbol(*args, int blocks[2])`` reports them."""
+    blocks = (ctypes.c_int * 2)()
+    if getattr(library(source), symbol)(*args, blocks) != 0:
+        raise ValueError(f"{symbol} refused {args}")
+    return blocks[0], blocks[1]
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -3,9 +3,11 @@
 ``key_switch_digits`` covers the per-digit prescale→BConv→NTT→MAC region of a
 hybrid key-switch (everything between the shared iNTT and ModDown);
 ``mod_down_digits`` covers the prescale→BConv→NTT→(sub, ×P⁻¹) region of
-ModDown for a batch of accumulators.  On a CUDA tensor each is ONE launch of
-its ``csrc/fusedks.cu`` kernel; on a CPU tensor the plain staged composition
-in ``ref`` runs.  Either way each call records one dispatch.
+ModDown for a batch of accumulators.  On a CUDA tensor each is one call of
+its C entry in ``csrc/fusedks.cu`` — ``fused_ks_launch`` starts two kernels
+(the two NTT passes, many blocks per limb), ``fused_moddown_launch`` one —
+and counts one launch; on a CPU tensor the plain staged composition in
+``ref`` runs.  Either way each call records one dispatch.
 
 Tables are cached per (params, level, device): the per-limb prescale
 constants and BConv weights in Montgomery form, and the NTT tables of the
@@ -23,13 +25,13 @@ from repro_torch.fhe import modmath as mm
 from repro_torch.fhe import poly, rns
 from repro_torch.fhe.params import CkksParams
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, mont_form, ptr, u32_tensor
+from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, mont_form, pass_blocks, ptr, u32_tensor
 from repro_torch.kernels.ntt import ops as ntt_ops
 
 from . import ref as _ref
 
 FUSED_KS = CudaKernel("fused_ks", "fusedks.cu", "fused_ks_launch",
-                      [P, I, I, I, P, P, P, P, P, I, P, P, P, P, P, I, I, P])
+                      [P, I, I, I, P, P, P, P, P, I, P, P, P, P, P, P, I, I, P])
 FUSED_MODDOWN = CudaKernel("fused_moddown", "fusedks.cu", "fused_moddown_launch",
                            [P, I, I, P, P, P, P, I, P, P, P, P, P, P, P, I, I, P])
 
@@ -50,7 +52,7 @@ def ks_tables(params: CkksParams, level: int, device: torch.device) -> dict:
         bh[lo:hi] = mont_form(bhat_inv, src)
         w[lo:hi] = mont_form(wj.T, ext_primes).T
     nt = ntt_ops.kernel_tables(poly.plan_for(params, ext), len(ext), device)
-    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"],
+    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"], tw=nt["tw"],
                 r2=u32_tensor(mm.mont_constants_array(ext_primes)["r2"], device),
                 bh=u32_tensor(bh, device), w=u32_tensor(w, device))
 
@@ -90,15 +92,23 @@ def key_switch_digits(d_coeff, ksk_sel, params: CkksParams, level: int):
     if d_coeff.shape != (nq, n) or ksk_sel.shape != (beta, 2, m, n):
         raise ValueError(f"fused_ks wants d (nq={nq}, {n}) and ksk ({beta}, 2, {m}, {n}), "
                          f"got {tuple(d_coeff.shape)} and {tuple(ksk_sel.shape)}")
+    ntt_ops.check_size(n)
     t = ks_tables(params, level, dev)
     out = torch.empty((m, 2, n), dtype=torch.int32, device=dev)
-    scratch = torch.empty((m, n), dtype=torch.int32, device=dev)  # used where a limb outgrows shared memory
+    scratch = torch.empty((beta, m, n), dtype=torch.int32, device=dev)  # pass A's output, pass B's input
     FUSED_KS.launch(
         dev, ptr(d_coeff), nq, params.alpha, beta, ptr(t["q"]), ptr(t["qinv"]), ptr(t["r2"]),
-        ptr(t["bh"]), ptr(t["w"]), m, ptr(t["psi"]), ptr(t["roots"]), ptr(ksk_sel), ptr(out),
+        ptr(t["bh"]), ptr(t["w"]), m, ptr(t["psi"]), ptr(t["roots"]), ptr(t["tw"]), ptr(ksk_sel), ptr(out),
         ptr(scratch), n, n.bit_length() - 1,
     )
     return out[:, 0], out[:, 1]
+
+
+def ks_blocks_per_pass(beta: int, m: int, n: int) -> tuple[int, int]:
+    """The thread blocks of pass A and pass B that ``fused_ks_launch`` starts
+    for β digits over m extended limbs of ``n``, as its launcher computes them
+    (needs ``nvcc``)."""
+    return pass_blocks(FUSED_KS.source, "fused_ks_blocks", beta, m, n.bit_length() - 1)
 
 
 def mod_down_digits(p_coeff, q_part, params: CkksParams, level: int):

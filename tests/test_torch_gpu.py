@@ -64,22 +64,42 @@ def test_modops_kernel_matches_plain(card, shape):
     assert mops.KERNEL.launches == before + 4
 
 
-@pytest.mark.parametrize("logn", [8, 10, 12, 13, 14, 15, 16])
-def test_ntt_kernel_matches_plain(card, logn):
+# (batch, limbs, log2 N): every size the card tests and presets use, and the
+# paths' row counts: the rescale's single limb and lstm's 14 at 2^16, the MLP's 10 at 2^13
+NTT_SHAPES = [(2, 3, logn) for logn in (8, 10, 12, 13, 14, 15, 16)] + [(1, 1, 16), (1, 14, 16), (1, 10, 13)]
+
+
+@pytest.mark.parametrize("batch, limbs, logn", NTT_SHAPES)
+def test_ntt_kernel_matches_plain(card, batch, limbs, logn):
     n = 1 << logn
-    primes = P.master_chain(3)
+    primes = P.master_chain(limbs)
     plan = nttmod.build_plan(n, primes)
-    x = _residues((2, 3, n), primes, logn, card)
+    x = _residues((batch * limbs, n), primes * batch, logn, card).reshape(batch, limbs, n)
+    before = nops.KERNEL.launches
     fwd = nops.ntt_fwd(x, plan)
     assert torch.equal(fwd, nref.ntt_fwd_ref(x, plan))
     assert torch.equal(nops.ntt_inv(x, plan), nref.ntt_inv_ref(x, plan))
     assert torch.equal(nops.ntt_inv(fwd, plan), x)
+    torch.cuda.synchronize()
+    assert nops.KERNEL.launches == before + 3  # one launch per call, two kernels each
 
 
-@pytest.mark.parametrize("name", ["matmul", "lstm"])
+def test_two_pass_kernels_spread_each_limb_over_many_blocks(card):
+    for logn in range(13, 17):
+        pass1, pass2 = nops.blocks_per_pass(1, 1 << logn)
+        assert pass1 > 1 and pass2 > 1
+    assert min(nops.blocks_per_pass(14, 1 << 16)) >= 132  # the SMs of an H100
+    p = P.workload_params("lstm")
+    assert min(fops.ks_blocks_per_pass(p.beta(p.L), p.L + 1 + p.alpha, p.n)) >= 132
+    with pytest.raises(ValueError):
+        nops.ntt_fwd(torch.zeros((1, 1 << 7), dtype=torch.int32, device=card), nttmod.build_plan(1 << 7, P.master_chain(1)))
+
+
+@pytest.mark.parametrize("name", ["matmul", "lstm", "lola_cifar_plain", "dblookup"])
 def test_fused_kernels_match_plain(card, name):
     p = P.workload_params(name)
-    for level in sorted({p.L, p.alpha - 1, 1}):
+    # lstm's level 9: 10 limbs in digits of 7, so the second digit is ragged; lola_cifar_plain: β = 4
+    for level in sorted({p.L, p.alpha - 1, 1} | ({9} if name == "lstm" else set())):
         ext = poly.primes_for(p, poly.ext_idx(p, level))
         beta, m = p.beta(level), len(ext)
         d = _residues((level + 1, p.n), p.q_primes[: level + 1], level, card)
