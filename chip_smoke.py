@@ -10,10 +10,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      shapes the paths below give it — the CKKS multiply at the ``lstm``
      (N = 2^16) and ``matmul`` (N = 2^13) presets, with the rescale's 1-limb
      NTT and a ragged-digit key-switch at ``lstm``, the MLP's widest NTT,
-     BConv on the staged pipeline, the hoisted ModUp and Galois MAC at
-     ``lstm`` and ``lola_mnist_plain`` — bit-exact, launched, timed with CUDA
-     events; the two-pass kernels (NTT, ``fused_ks``) print the thread
-     blocks their launcher starts per pass;
+     BConv on the staged pipeline, ModDown over a group's 8 accumulators at
+     ``lstm`` and at ``lola_mnist_plain``, the hoisted ModUp (at ``lstm``'s
+     top level and ragged level 9) and Galois MAC at ``lstm`` and
+     ``lola_mnist_plain`` — bit-exact, launched, timed with CUDA events; the
+     two-pass kernels (NTT, ``fused_ks``, ``fused_moddown``, ``hoist_modup``)
+     print the thread blocks their launcher starts per pass;
   3. run the paths through the public API, each with the launch counters set
      to 0 just before it and read just after, and check each against the
      reference package's SHA-256 digests, dispatch counts and decode errors,
@@ -317,6 +319,17 @@ def main() -> int:
         check("ntt", case, lambda: kfn(x, plan), lambda: pfn(x, plan), (2 * rows + 2 * l) * n * WORD,
               rows * ntt_ops_per_limb(n), blocks=nops.blocks_per_pass(rows, n))
 
+    def check_fused_moddown(name, p, n_acc):
+        n, lv, alpha = p.n, p.L, p.alpha
+        nq = lv + 1
+        pc = rand_residues((n_acc * alpha, n), poly.primes_for(p, poly.p_idx(p)) * n_acc, gen).reshape(n_acc, alpha, n)
+        qpart = rand_residues((n_acc * nq, n), poly.primes_for(p, poly.q_idx(p, lv)) * n_acc, gen).reshape(n_acc, nq, n)
+        md_ops = n_acc * (modup_ops(n, alpha, nq, nq) + nq * n * (ADDMOD + MONTMUL))
+        check("fused_moddown", f"{name} pc {tuple(pc.shape)} q {tuple(qpart.shape)}",
+              lambda: fops.mod_down_digits(pc, qpart, p, lv), lambda: fref.mod_down_digits_ref(pc, qpart, p, lv),
+              (n_acc * alpha + 2 * n_acc * nq + 2 * nq) * n * WORD, md_ops,
+              blocks=fops.moddown_blocks_per_pass(n_acc, nq, n))
+
     def check_fused_ks(p, level, case):
         n, beta = p.n, p.beta(level)
         nq, m = level + 1, level + 1 + p.alpha
@@ -352,12 +365,11 @@ def main() -> int:
         # the top level, and (lstm) a level whose last digit is ragged: 10 limbs in digits of 7
         for level in (lv, 9) if name == "lstm" else (lv,):
             check_fused_ks(p, level, f"{name} level={level} beta={p.beta(level)}")
-        qpart = rand_residues((2, nq, n), qp, gen)
-        md_ops = 2 * (modup_ops(n, alpha, nq, nq) + nq * n * (ADDMOD + MONTMUL))
-        check("fused_moddown", f"{name} pc {tuple(xp.shape)} q {tuple(qpart.shape)}",
-              lambda: fops.mod_down_digits(xp, qpart, p, lv), lambda: fref.mod_down_digits_ref(xp, qpart, p, lv),
-              (2 * alpha + 2 * nq + 2 * nq + 2 * nq) * n * WORD, md_ops)
+        # one key-switch's 2 accumulators; at lstm also a group of 4 rotations' 8
+        for n_acc in (2, 2 * len(LSTM_GROUP["rotations"])) if name == "lstm" else (2,):
+            check_fused_moddown(name, p, n_acc)
 
+    check_fused_moddown(MLP["preset"], mlp_p, 2)
     # the NTT at the MLP's widest shape: the 10 extended limbs of lola_mnist_plain's top level
     mlp_ext = poly.ext_idx(mlp_p, mlp_p.L)
     x = rand_residues((len(mlp_ext), mlp_p.n), poly.primes_for(mlp_p, mlp_ext), gen)
@@ -387,10 +399,14 @@ def main() -> int:
         nq, m = lv + 1, lv + 1 + p.alpha
         qp = poly.primes_for(p, poly.q_idx(p, lv))
         ext = poly.primes_for(p, poly.ext_idx(p, lv))
-        d = rand_residues((nq, n), qp, gen)
-        check("hoist_modup", f"{name} d ({nq}, {n}) -> ({beta}, {m}, {n})", lambda: hops.mod_up_digits(d, p, lv),
-              lambda: href.mod_up_digits_ref(d, p, lv), (nq + 2 * m + beta * m) * n * WORD,
-              modup_ops(n, nq, m, beta * m))
+        # the top level, and (lstm) level 9, whose second digit is ragged
+        for level in (lv, 9) if name == "lstm" else (lv,):
+            lnq, lm, lbeta = level + 1, level + 1 + p.alpha, p.beta(level)
+            d = rand_residues((lnq, n), qp[:lnq], gen)
+            check("hoist_modup", f"{name} level={level} d ({lnq}, {n}) -> ({lbeta}, {lm}, {n})",
+                  lambda: hops.mod_up_digits(d, p, level), lambda: href.mod_up_digits_ref(d, p, level),
+                  (lnq + 2 * lm + lbeta * lm) * n * WORD, modup_ops(n, lnq, lm, lbeta * lm),
+                  blocks=hops.modup_blocks_per_pass(lbeta, lm, n))
         dig = rand_residues((beta * m, n), ext * beta, gen).reshape(beta, m, n)
         ksk = rand_residues((nrot * beta * 2 * m, n), ext * (nrot * beta * 2), gen).reshape(nrot, beta, 2, m, n)
         check("hoist_mac", f"{name} R={nrot} ksk {tuple(ksk.shape)}", lambda: hops.galois_mac(dig, ksk, p, lv),
@@ -590,6 +606,7 @@ def main() -> int:
             launches=paths[home.get(kname, "mul lstm")][kname], max_abs_err=max(c["max_abs_err"] for c in v["cases"]),
             ms=head["kernel_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, exact=all(c["exact"] for c in v["cases"]), kernel_ms=head["kernel_ms"],
+            blocks_per_pass=head.get("blocks_per_pass"),
             call_ms=head["call_ms"], shape=head["case"], launches_path=home.get(kname, "mul lstm"),
             launches_by_path={path: launches[kname] for path, launches in paths.items()}, cases=v["cases"],
         ))

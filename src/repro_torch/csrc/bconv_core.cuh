@@ -1,6 +1,7 @@
 // Fast basis conversion, shared by bconv.cu, fusedks.cu and hoistrot.cu: one
-// output coefficient (bconv_coeff), several at once (bconv_coeffs, fused_ks's
-// pass A), and one whole ModUp row (modup_row).
+// output coefficient (bconv_coeff), several at once (bconv_coeffs), and pass A
+// of a two-pass ModUp (modup_pass_a), which fused_ks, fused_moddown and
+// hoist_modup run.
 //
 // Conv_{B→C}(x)[e, i] = Σ_s x̂_s[i]·(B̂_s mod c_e)  (mod c_e), with
 // x̂_s = x_s·[B̂_s^{-1}]_{b_s} mod b_s.  Every term is one montmul against the
@@ -13,7 +14,7 @@
 #include <cstdint>
 
 #include "montgomery.cuh"
-#include "ntt_core.cuh"
+#include "ntt_passes.cuh"
 
 // Source rows s in [lo, hi) of x (row s at x + s·n), coefficient i, to target
 // limb e of modulus c.  w_m is (rows, m) row-major: w_m[s·m + e] = W[s, e]·R.
@@ -61,23 +62,61 @@ __device__ __forceinline__ void bconv_coeffs(uint32_t* y, const uint32_t* __rest
     }
 }
 
-// One ModUp row, run by the whole block: BConv of source rows [lo, hi) of x to
-// target limb e (prescaled, as bconv_coeff<true>), twisted by psi_m[e] into
-// its bit-reversed slot of buf, then the forward NTT over roots_m[e].  buf is
-// the block's working limb (ntt_buffer); on return it holds the row in the
-// evaluation domain, natural order, behind a barrier.  The fused_ks,
-// fused_moddown and hoist_modup kernels run their ModUp through this one copy.
-__device__ __forceinline__ void modup_row(uint32_t* buf, const uint32_t* __restrict__ x, int n, int log_n, int lo,
-                                          int hi, const uint32_t* __restrict__ bh_m,
-                                          const uint32_t* __restrict__ src_q,
-                                          const uint32_t* __restrict__ src_qinv,
-                                          const uint32_t* __restrict__ w_m, int m, int e, uint32_t c, uint32_t cinv,
-                                          const uint32_t* __restrict__ psi_m,
-                                          const uint32_t* __restrict__ roots_m) {
-    const uint32_t* psi = psi_m + static_cast<size_t>(e) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const uint32_t y = bconv_coeff<true>(x, i, n, lo, hi, bh_m, src_q, src_qinv, w_m, m, e, c, cinv);
-        buf[bitrev(i, log_n)] = montmul(y, psi[i], c, cinv);
-    }
-    ntt_dit_stages(buf, roots_m + static_cast<size_t>(e) * n, n, log_n, c, cinv);
+// Pass A of a two-pass ModUp (ntt_passes.cuh), run by the whole block for
+// column tile blockIdx.x of one target row: the prescaled BConv of source rows
+// [lo, hi) of x (row s at x + s·N, modulus src_q[s]) to limb e of modulus c,
+// PASS_SLOTS coefficients a thread at once (bconv_coeffs), each twisted by
+// psi, then the N1-point column NTTs over roots and the inter-pass twiddle tw,
+// stored to y.  psi, roots and tw are the target limb's rows (·R); w_m is
+// (rows, m) as for bconv_coeff.  Pass 2 of the forward NTT (row_ntt_pass)
+// finishes the row.
+__device__ __forceinline__ void modup_pass_a(const uint32_t* __restrict__ x, int lo, int hi,
+                                             const uint32_t* __restrict__ bh_m, const uint32_t* __restrict__ src_q,
+                                             const uint32_t* __restrict__ src_qinv,
+                                             const uint32_t* __restrict__ w_m, int m, int e, uint32_t c,
+                                             uint32_t cinv, const uint32_t* __restrict__ psi,
+                                             const uint32_t* __restrict__ roots, const uint32_t* __restrict__ tw,
+                                             uint32_t* __restrict__ y, int log_n) {
+    __shared__ uint32_t tile[PASS_TILE_WORDS];
+    __shared__ uint32_t sub[1 << (PASS_MAX_LOG_M - 1)];
+    const int log_n1 = pass_log_n1(log_n);
+    const int log_n2 = log_n - log_n1;
+    const int c0 = blockIdx.x * PASS_TILE;
+    load_sub_roots(sub, roots, log_n1, log_n2);
+    __syncthreads();
+    dif_columns(
+        tile, PASS_TILE, 1, log_n1, sub, c, cinv,
+        [&](const int* pos, int col, uint32_t* v) {
+            size_t i[PASS_SLOTS];
+#pragma unroll
+            for (int k = 0; k < PASS_SLOTS; ++k) i[k] = (static_cast<size_t>(pos[k]) << log_n2) + c0 + col;
+            bconv_coeffs<PASS_SLOTS>(v, x, i, 1 << log_n, lo, hi, bh_m, src_q, src_qinv, w_m, m, e, c, cinv);
+#pragma unroll
+            for (int k = 0; k < PASS_SLOTS; ++k) v[k] = montmul(v[k], psi[i[k]], c, cinv);
+        },
+        [&](int pos, int col, int, uint32_t v) {
+            const size_t i = (static_cast<size_t>(rev_bits(pos, log_n1)) << log_n2) + c0 + col;
+            y[i] = montmul(v, tw[i], c, cinv);
+        });
+}
+
+// Pass A of the digits' ModUp (fused_ks, hoist_modup): block (column tile,
+// row j·m + e) converts digit j's source limbs of d (nq limbs in digits of
+// alpha, the last one ragged) to extended limb e, into row j·m + e of a
+// (β, m, N) scratch.  Source limb s < nq has modulus ext_q[s]; bh_m is (nq,),
+// w_m (nq, m), and psi_m, roots_m, tw_m are (m, N).
+__device__ __forceinline__ void digits_pass_a(const uint32_t* __restrict__ d, int nq, int alpha,
+                                              const uint32_t* __restrict__ ext_q,
+                                              const uint32_t* __restrict__ ext_qinv,
+                                              const uint32_t* __restrict__ bh_m, const uint32_t* __restrict__ w_m,
+                                              int m, const uint32_t* __restrict__ psi_m,
+                                              const uint32_t* __restrict__ roots_m,
+                                              const uint32_t* __restrict__ tw_m, uint32_t* __restrict__ scratch,
+                                              int log_n) {
+    const int row = blockIdx.y;
+    const int e = row % m;
+    const int lo = row / m * alpha;
+    const size_t at = static_cast<size_t>(e) << log_n;
+    modup_pass_a(d, lo, min(lo + alpha, nq), bh_m, ext_q, ext_qinv, w_m, m, e, ext_q[e], ext_qinv[e], psi_m + at,
+                 roots_m + at, tw_m + at, scratch + (static_cast<size_t>(row) << log_n), log_n);
 }

@@ -73,10 +73,6 @@ __global__ void __launch_bounds__(PASS_MAX_THREADS)
     ntt_pass2(const uint32_t* __restrict__ y, uint32_t* __restrict__ out, const uint32_t* __restrict__ q,
               const uint32_t* __restrict__ qinv, const uint32_t* __restrict__ twist_m,
               const uint32_t* __restrict__ roots_m, int limbs, int log_n) {
-    __shared__ uint32_t tile[PASS_TILE_WORDS];
-    __shared__ uint32_t sub[1 << (PASS_MAX_LOG_M - 1)];
-    const int log_n1 = pass_log_n1(log_n);
-    const int log_n2 = log_n - log_n1;
     const size_t row = blockIdx.y;
     const int limb = static_cast<int>(row % limbs);
     const size_t n = size_t{1} << log_n;
@@ -84,16 +80,9 @@ __global__ void __launch_bounds__(PASS_MAX_THREADS)
     const uint32_t qi = qinv[limb];
     uint32_t* outr = out + row * n;
     const uint32_t* twist = twist_m + limb * n;
-    const int r0 = blockIdx.x * PASS_TILE;
-    load_sub_roots(sub, roots_m + limb * n, log_n2, log_n1);
-    stage_rows(tile, y + row * n, r0, log_n2);
-    __syncthreads();
-    dif_columns(
-        tile, 1, (1 << log_n2) + 1, log_n2, sub, qq, qi, staged_load(tile, log_n2),
-        [&](int pos, int col, int, uint32_t v) {
-            const size_t i = r0 + col + (static_cast<size_t>(rev_bits(pos, log_n2)) << log_n1);
-            outr[i] = INVERSE ? montmul(v, twist[i], qq, qi) : v;
-        });
+    row_ntt_pass(y + row * n, roots_m + limb * n, qq, qi, log_n, [&](size_t i, uint32_t v) {
+        outr[i] = INVERSE ? montmul(v, twist[i], qq, qi) : v;
+    });
 }
 
 template <bool INVERSE>

@@ -1,5 +1,5 @@
-// Two-pass (four-step) negacyclic NTT: the device code shared by ntt.cu and
-// fusedks.cu, which spreads every limb over many thread blocks.
+// Two-pass (four-step) negacyclic NTT: the device code shared by ntt.cu,
+// fusedks.cu and hoistrot.cu, which spreads every limb over many thread blocks.
 //
 // Split N = N1·N2 with N1 = 2^floor(log2(N)/2) (2^16 = 2^8·2^8, 2^13 = 2^6·2^7)
 // and write n = N2·n1 + n2, k = k1 + N1·k2.  The cyclic NTT over w is then
@@ -162,6 +162,29 @@ __device__ __forceinline__ auto staged_load(const uint32_t* tile, int log_n2) {
 #pragma unroll
         for (int x = 0; x < PASS_SLOTS; ++x) v[x] = tile[col * ld + pos[x]];
     };
+}
+
+// Pass 2 of a forward NTT, run by the whole block: rows r0..r0+PASS_TILE of one
+// limb's intermediate y (r0 = blockIdx.x·PASS_TILE), staged, the N2-point row
+// NTTs over roots (the limb's w^i·R), and each output handed to store(i, v)
+// with its natural-order index i = k1 + N1·k2.  Consecutive threads get
+// consecutive k1, so a store to a row of N words goes out as 64-byte segments.
+// The NTT's pass 2 and the pass B of fused_moddown and hoist_modup run it.
+template <class Store>
+__device__ __forceinline__ void row_ntt_pass(const uint32_t* __restrict__ y, const uint32_t* __restrict__ roots,
+                                             uint32_t q, uint32_t qinv, int log_n, Store store) {
+    __shared__ uint32_t tile[PASS_TILE_WORDS];
+    __shared__ uint32_t sub[1 << (PASS_MAX_LOG_M - 1)];
+    const int log_n1 = pass_log_n1(log_n);
+    const int log_n2 = log_n - log_n1;
+    const int r0 = blockIdx.x * PASS_TILE;
+    load_sub_roots(sub, roots, log_n2, log_n1);
+    stage_rows(tile, y, r0, log_n2);
+    __syncthreads();
+    dif_columns(tile, 1, (1 << log_n2) + 1, log_n2, sub, q, qinv, staged_load(tile, log_n2),
+                [&](int pos, int col, int, uint32_t v) {
+                    store(r0 + col + (static_cast<size_t>(rev_bits(pos, log_n2)) << log_n1), v);
+                });
 }
 
 // Host side: the two launches over `rows` limbs of N = 2^log_n.  Pass 1 has

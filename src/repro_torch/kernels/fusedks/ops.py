@@ -4,10 +4,10 @@
 hybrid key-switch (everything between the shared iNTT and ModDown);
 ``mod_down_digits`` covers the prescale→BConv→NTT→(sub, ×P⁻¹) region of
 ModDown for a batch of accumulators.  On a CUDA tensor each is one call of
-its C entry in ``csrc/fusedks.cu`` — ``fused_ks_launch`` starts two kernels
-(the two NTT passes, many blocks per limb), ``fused_moddown_launch`` one —
-and counts one launch; on a CPU tensor the plain staged composition in
-``ref`` runs.  Either way each call records one dispatch.
+its C entry in ``csrc/fusedks.cu`` — ``fused_ks_launch`` and
+``fused_moddown_launch`` each start two kernels (the two NTT passes, many
+blocks per limb) — and counts one launch; on a CPU tensor the plain staged
+composition in ``ref`` runs.  Either way each call records one dispatch.
 
 Tables are cached per (params, level, device): the per-limb prescale
 constants and BConv weights in Montgomery form, and the NTT tables of the
@@ -33,7 +33,7 @@ from . import ref as _ref
 FUSED_KS = CudaKernel("fused_ks", "fusedks.cu", "fused_ks_launch",
                       [P, I, I, I, P, P, P, P, P, I, P, P, P, P, P, P, I, I, P])
 FUSED_MODDOWN = CudaKernel("fused_moddown", "fusedks.cu", "fused_moddown_launch",
-                           [P, I, I, P, P, P, P, I, P, P, P, P, P, P, P, I, I, P])
+                           [P, I, I, P, P, P, P, I, P, P, P, P, P, P, P, P, P, I, I, P])
 
 
 @functools.lru_cache(maxsize=256)
@@ -60,7 +60,8 @@ def ks_tables(params: CkksParams, level: int, device: torch.device) -> dict:
 @functools.lru_cache(maxsize=256)
 def moddown_tables(params: CkksParams, level: int, device: torch.device) -> dict:
     """Constants of ``fused_moddown`` at ``level``: the special block's prescale,
-    its BConv rows to the q basis, [P⁻¹]_{q_e} (all ·R) and the q-basis NTT tables."""
+    its BConv rows to the q basis, [P⁻¹]_{q_e} (all ·R) and the q-basis NTT tables,
+    inter-pass twiddles included."""
     p_primes = poly.primes_for(params, poly.p_idx(params))
     q_primes = poly.primes_for(params, poly.q_idx(params, level))
     bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
@@ -68,7 +69,7 @@ def moddown_tables(params: CkksParams, level: int, device: torch.device) -> dict
     pinv = np.array([pow(P_ % q, -1, q) for q in q_primes], np.uint64)
     pc = mm.mont_constants_array(p_primes)
     nt = ntt_ops.kernel_tables(poly.plan_for(params, poly.q_idx(params, level)), len(q_primes), device)
-    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"],
+    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"], tw=nt["tw"],
                 p_q=u32_tensor(pc["q"], device), p_qinv=u32_tensor(pc["qinv_neg"], device),
                 bh=u32_tensor(mont_form(bhat_inv, p_primes), device),
                 w=u32_tensor(mont_form(w.T, q_primes).T, device),
@@ -127,11 +128,20 @@ def mod_down_digits(p_coeff, q_part, params: CkksParams, level: int):
     if p_coeff.shape != (n_acc, alpha, n) or q_part.shape != (n_acc, nq, n):
         raise ValueError(f"fused_moddown wants ({n_acc}, {alpha}, {n}) and ({n_acc}, {nq}, {n}), "
                          f"got {tuple(p_coeff.shape)} and {tuple(q_part.shape)}")
+    ntt_ops.check_size(n)
     t = moddown_tables(params, level, dev)
     out = torch.empty_like(q_part)
+    scratch = torch.empty_like(q_part)  # pass A's output, pass B's input
     FUSED_MODDOWN.launch(
         dev, ptr(p_coeff), n_acc, alpha, ptr(t["p_q"]), ptr(t["p_qinv"]), ptr(t["bh"]), ptr(t["w"]), nq,
-        ptr(t["q"]), ptr(t["qinv"]), ptr(t["psi"]), ptr(t["roots"]), ptr(q_part), ptr(t["pinv"]), ptr(out),
-        n, n.bit_length() - 1,
+        ptr(t["q"]), ptr(t["qinv"]), ptr(t["psi"]), ptr(t["roots"]), ptr(t["tw"]), ptr(q_part), ptr(t["pinv"]),
+        ptr(out), ptr(scratch), n, n.bit_length() - 1,
     )
     return out
+
+
+def moddown_blocks_per_pass(n_acc: int, nq: int, n: int) -> tuple[int, int]:
+    """The thread blocks of pass A and pass B that ``fused_moddown_launch``
+    starts for ``n_acc`` accumulators of nq q limbs of ``n``, as its launcher
+    computes them (needs ``nvcc``)."""
+    return pass_blocks(FUSED_MODDOWN.source, "fused_moddown_blocks", n_acc, nq, n.bit_length() - 1)

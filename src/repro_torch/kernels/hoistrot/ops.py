@@ -3,8 +3,10 @@
 ``mod_up_digits`` raises all β digits of one polynomial to the extended basis
 (one launch, the digits materialised for reuse); ``galois_mac`` applies every
 Galois key of a rotation group against those digits in one launch.  On a CUDA
-tensor each is ONE launch of its ``csrc/hoistrot.cu`` kernel; on a CPU tensor
-the plain version in ``ref`` runs.  Either way each call records one dispatch
+tensor each is ONE call of its C entry in ``csrc/hoistrot.cu`` —
+``hoist_modup_launch`` starts two kernels (the two NTT passes, many blocks per
+limb), ``hoist_mac_launch`` one — and counts one launch; on a CPU tensor the
+plain version in ``ref`` runs.  Either way each call records one dispatch
 (``hoistmodup``/``hoistmac``).  ``galois_mac(staged=True)`` is the staged
 pipeline's per-op MAC instead: one ``mulmod``/``addmod`` dispatch per step.
 
@@ -20,14 +22,15 @@ import torch
 
 from repro_torch.fhe.params import CkksParams
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, library, ptr
+from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, library, pass_blocks, ptr
 from repro_torch.kernels.fusedks import ops as fused_ops
 from repro_torch.kernels.modops import ops as mo
+from repro_torch.kernels.ntt import ops as ntt_ops
 
 from . import ref as _ref
 
 HOIST_MODUP = CudaKernel("hoist_modup", "hoistrot.cu", "hoist_modup_launch",
-                         [P, I, I, I, P, P, P, P, I, P, P, P, I, I, P])
+                         [P, I, I, I, P, P, P, P, I, P, P, P, P, P, I, I, P])
 HOIST_MAC = CudaKernel("hoist_mac", "hoistrot.cu", "hoist_mac_launch", [P, P, I, I, I, P, P, P, P, I, P])
 
 
@@ -54,11 +57,21 @@ def mod_up_digits(d_coeff, params: CkksParams, level: int):
     m = nq + params.alpha
     if d_coeff.shape != (nq, n):
         raise ValueError(f"hoist_modup wants d ({nq}, {n}), got {tuple(d_coeff.shape)}")
+    ntt_ops.check_size(n)
     t = fused_ops.ks_tables(params, level, dev)
     out = torch.empty((beta, m, n), dtype=torch.int32, device=dev)
+    scratch = torch.empty_like(out)  # pass A's output, pass B's input
     HOIST_MODUP.launch(dev, ptr(d_coeff), nq, params.alpha, beta, ptr(t["q"]), ptr(t["qinv"]), ptr(t["bh"]),
-                       ptr(t["w"]), m, ptr(t["psi"]), ptr(t["roots"]), ptr(out), n, n.bit_length() - 1)
+                       ptr(t["w"]), m, ptr(t["psi"]), ptr(t["roots"]), ptr(t["tw"]), ptr(out), ptr(scratch), n,
+                       n.bit_length() - 1)
     return out
+
+
+def modup_blocks_per_pass(beta: int, m: int, n: int) -> tuple[int, int]:
+    """The thread blocks of pass A and pass B that ``hoist_modup_launch``
+    starts for β digits over m extended limbs of ``n``, as its launcher
+    computes them (needs ``nvcc``)."""
+    return pass_blocks(HOIST_MODUP.source, "hoist_modup_blocks", beta, m, n.bit_length() - 1)
 
 
 def galois_mac(dig, ksk, params: CkksParams, level: int, staged: bool = False):

@@ -91,6 +91,10 @@ def test_two_pass_kernels_spread_each_limb_over_many_blocks(card):
     assert min(nops.blocks_per_pass(14, 1 << 16)) >= 132  # the SMs of an H100
     p = P.workload_params("lstm")
     assert min(fops.ks_blocks_per_pass(p.beta(p.L), p.L + 1 + p.alpha, p.n)) >= 132
+    # ModDown over one key-switch's 2 accumulators and a group of 4 rotations' 8, and the hoisted ModUp
+    assert fops.moddown_blocks_per_pass(2, p.L + 1, p.n) == (448, 448)
+    assert fops.moddown_blocks_per_pass(8, p.L + 1, p.n) == (1792, 1792)
+    assert hops.modup_blocks_per_pass(p.beta(p.L), p.L + 1 + p.alpha, p.n) == (672, 672)
     with pytest.raises(ValueError):
         nops.ntt_fwd(torch.zeros((1, 1 << 7), dtype=torch.int32, device=card), nttmod.build_plan(1 << 7, P.master_chain(1)))
 
@@ -107,9 +111,13 @@ def test_fused_kernels_match_plain(card, name):
         got = fops.key_switch_digits(d, ksk, p, level)
         want = fref.key_switch_digits_ref(d, ksk, p, level)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        pc = _residues((2 * p.alpha, p.n), poly.primes_for(p, poly.p_idx(p)) * 2, 7, card).reshape(2, p.alpha, p.n)
-        qpart = _residues((2 * (level + 1), p.n), p.q_primes[: level + 1] * 2, 8, card).reshape(2, level + 1, p.n)
-        assert torch.equal(fops.mod_down_digits(pc, qpart, p, level), fref.mod_down_digits_ref(pc, qpart, p, level))
+        for n_acc in (2, 8):  # one key-switch's accumulators, and a hoisted group of 4 rotations' (C = 2R)
+            pc = _residues((n_acc * p.alpha, p.n), poly.primes_for(p, poly.p_idx(p)) * n_acc, 7, card)
+            pc = pc.reshape(n_acc, p.alpha, p.n)
+            qpart = _residues((n_acc * (level + 1), p.n), p.q_primes[: level + 1] * n_acc, 8, card)
+            qpart = qpart.reshape(n_acc, level + 1, p.n)
+            assert torch.equal(fops.mod_down_digits(pc, qpart, p, level),
+                               fref.mod_down_digits_ref(pc, qpart, p, level))
 
 
 def test_mul_on_the_card_equals_the_cpu(card):
@@ -139,10 +147,11 @@ def test_bconv_kernel_matches_plain(card, name):
     assert bops.KERNEL.launches > before
 
 
-@pytest.mark.parametrize("name", ["lola_mnist_plain", "lstm"])
+@pytest.mark.parametrize("name", ["lola_mnist_plain", "lstm", "lola_cifar_plain"])
 def test_hoist_kernels_match_plain(card, name):
     p = P.workload_params(name)
-    for level in sorted({p.L, p.alpha - 1, 1}):
+    # lstm's level 9: 10 limbs in digits of 7, so the second digit is ragged; lola_cifar_plain: β = 4
+    for level in sorted({p.L, p.alpha - 1, 1} | ({9} if name == "lstm" else set())):
         ext = poly.primes_for(p, poly.ext_idx(p, level))
         beta, m = p.beta(level), len(ext)
         d = _residues((level + 1, p.n), p.q_primes[: level + 1], level, card)

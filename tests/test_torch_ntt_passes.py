@@ -5,10 +5,13 @@ A model of the CUDA kernels' index math in int64: the N = N1·N2 split, pass
 store, pass 2's row NTTs with its stride-N1 store (and the inverse's
 psi^-i·N^-1), and inside each sub-NTT the kernels' own groups of up to three
 DIF stages, their task → position map and their twiddle index j << shift into
-the M/2 sub-roots.  Every table is read from ``kernel_tables`` /
-``ks_tables``, the tensors the kernels are given.  The model must equal the
-plain versions (and the reference package's NTT) exactly; the kernels are held
-against the same plain versions on the card (``tests/test_torch_gpu.py``).
+the M/2 sub-roots.  On top of it, the two-pass kernels built from the same
+pieces: ``fused_ks``, ``fused_moddown`` and ``hoist_modup``, each pass A
+(``modup_pass_a`` of ``bconv_core.cuh``) followed by its pass B.  Every table
+is read from ``kernel_tables`` / ``ks_tables`` / ``moddown_tables``, the
+tensors the kernels are given.  The model must equal the plain versions (and
+the reference package's) exactly; the kernels are held against the same plain
+versions on the card (``tests/test_torch_gpu.py``).
 """
 
 import jax.numpy as jnp
@@ -17,12 +20,16 @@ import pytest
 import torch
 
 from repro.fhe import ntt as R_ntt
+from repro.fhe import params as R_P
+from repro.kernels.fusedks import ref as R_fref
+from repro.kernels.hoistrot import ref as R_href
 from repro.kernels.ntt import ref as R_nttref
 from repro_torch.fhe import ntt as T_ntt
 from repro_torch.fhe import params as T_P
 from repro_torch.fhe import poly as T_poly
 from repro_torch.kernels.fusedks import ops as T_fops
 from repro_torch.kernels.fusedks import ref as T_fref
+from repro_torch.kernels.hoistrot import ref as T_href
 from repro_torch.kernels.ntt import ops as T_nttops
 from repro_torch.kernels.ntt import ref as T_nttref
 
@@ -129,15 +136,20 @@ def pass2_store_index(n):
     return torch.arange(n1)[None, :] + n1 * k2  # (N2, N1)
 
 
+def row_ntt_pass(y, roots, mod, n):
+    """row_ntt_pass of ntt_passes.cuh: the row NTTs of Y (L, N), each output at
+    the natural-order index its store is given."""
+    out = torch.empty_like(y)
+    out[:, pass2_store_index(n).reshape(-1)] = pass2_ntt(y, roots, mod, n).reshape(y.shape[0], -1)
+    return out
+
+
 def two_pass_ntt(x, plan, inverse):
     l, n = x.shape
     t = {k: _u32(v) for k, v in T_nttops.kernel_tables(plan, l, CPU).items()}
     mod = Mod(t["q"], 3)
     twist, roots, tw = (t["psiinv_ninv"], t["winv"], t["twinv"]) if inverse else (t["psi"], t["w"], t["tw"])
-    y = pass1(x.long(), twist, roots, tw, mod, n, inverse)
-    a = pass2_ntt(y, roots, mod, n)
-    out = torch.empty(l, n, dtype=torch.long)
-    out[:, pass2_store_index(n).reshape(-1)] = a.reshape(l, -1)
+    out = row_ntt_pass(pass1(x.long(), twist, roots, tw, mod, n, inverse), roots, mod, n)
     if inverse:
         out = Mod(t["q"], 2).montmul(out, twist)
     return out.int()
@@ -181,42 +193,56 @@ def test_split_and_inter_pass_twiddles():
         T_nttops.check_size(1 << 7)
 
 
+def modup_pass_a(x, lo, hi, src_q, bh, w, t, n):
+    """modup_pass_a of bconv_core.cuh over every target row: source rows [lo, hi)
+    of x (moduli src_q) prescaled by bh, converted to each target limb by
+    bconv_coeffs (each term reduced mod c_e before it is added), then pass 1 of
+    the forward NTT with the twist.  w: (source rows, targets); t: the target
+    basis's tables."""
+    tgt2, tgt3 = Mod(t["q"], 2), Mod(t["q"], 3)
+    xh = Mod(src_q, 2).montmul(x.long(), bh[:, None])
+    y = torch.zeros(len(t["q"]), n, dtype=torch.long)
+    for s in range(lo, hi):
+        y = (y + tgt2.montmul(xh[s][None, :], w[s][:, None])) % tgt2.q
+    return pass1(y, t["psi"], t["roots"], t["tw"], tgt3, n, inverse=False)
+
+
+def digits_pass_a(d, params, level, t):
+    """digits_pass_a of bconv_core.cuh (pass A of fused_ks and hoist_modup):
+    (β, m, N) scratch, row j·m + e from digit j's source limbs."""
+    nq, alpha = level + 1, params.alpha
+    return torch.stack([modup_pass_a(d, j * alpha, min((j + 1) * alpha, nq), t["q"][:nq], t["bh"], t["w"], t, params.n)
+                        for j in range(params.beta(level))])
+
+
 def two_pass_key_switch(d, ksk, params, level):
     """fused_ks_pass_a then fused_ks_pass_b, as fusedks.cu runs them."""
-    n, nq, alpha, beta = params.n, level + 1, params.alpha, params.beta(level)
-    m = nq + alpha
+    n, beta = params.n, params.beta(level)
+    m = level + 1 + params.alpha
     t = {k: _u32(v) for k, v in T_fops.ks_tables(params, level, CPU).items()}
-    src_mod = Mod(t["q"][:nq], 2)
     ext_mod2, ext_mod3 = Mod(t["q"], 2), Mod(t["q"], 3)
-    d = d.long()
-    # pass A: row j·m + e — bconv_coeff<true> (each term reduced mod c_e), the twist, column NTTs
-    scratch = torch.empty(beta, m, n, dtype=torch.long)
-    for j in range(beta):
-        lo, hi = j * alpha, min((j + 1) * alpha, nq)
-        xh = src_mod.montmul(d, t["bh"][:, None])  # prescale, every source limb
-        y = torch.zeros(m, n, dtype=torch.long)
-        for s in range(lo, hi):
-            y = (y + ext_mod2.montmul(xh[s][None, :], t["w"][s][:, None])) % ext_mod2.q
-        scratch[j] = pass1(y, t["psi"], t["roots"], t["tw"], ext_mod3, n, inverse=False)
+    scratch = digits_pass_a(d, params, level, t)
     # pass B: limb e — for every digit the row NTTs and the MAC, both sums carried
-    idx = pass2_store_index(n).reshape(-1)
     r2 = t["r2"][:, None]
     acc = torch.zeros(2, m, n, dtype=torch.long)
     for j in range(beta):
-        v = torch.empty(m, n, dtype=torch.long)
-        v[:, idx] = pass2_ntt(scratch[j], t["roots"], ext_mod3, n).reshape(m, -1)
+        v = row_ntt_pass(scratch[j], t["roots"], ext_mod3, n)
         for c in range(2):
             prod = ext_mod2.montmul(ext_mod2.montmul(v, _u32(ksk[j, c])), r2)  # mulmod: a·b·R^-1, then ·R^2·R^-1
             acc[c] = (acc[c] + prod) % ext_mod2.q
     return acc[0].int(), acc[1].int()
 
 
+def _levels(p):
+    levels = sorted({p.L, p.alpha, p.alpha - 1, 1})
+    assert any((lv + 1) % p.alpha for lv in levels if lv + 1 > p.alpha)  # a ragged last digit among them
+    return levels
+
+
 @pytest.mark.parametrize("dnum, L", [(2, 5), (4, 7)], ids=["alpha3", "beta4"])
 def test_two_pass_key_switch_equals_the_plain_version(dnum, L):
     p = T_P.make_params(1 << 9, L, dnum, check_security=False)
-    levels = sorted({p.L, p.alpha, p.alpha - 1, 1})
-    assert any((lv + 1) % p.alpha for lv in levels if lv + 1 > p.alpha)  # a ragged last digit among them
-    for level in levels:
+    for level in _levels(p):
         ext = T_poly.primes_for(p, T_poly.ext_idx(p, level))
         beta, m = p.beta(level), len(ext)
         d = _residues((level + 1, p.n), p.q_primes[: level + 1], level)
@@ -224,3 +250,54 @@ def test_two_pass_key_switch_equals_the_plain_version(dnum, L):
         got = two_pass_key_switch(d, ksk, p, level)
         want = T_fref.key_switch_digits_ref(d, ksk, p, level)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def two_pass_mod_up(d, params, level):
+    """hoist_modup_pass_a then hoist_modup_pass_b, as hoistrot.cu runs them."""
+    t = {k: _u32(v) for k, v in T_fops.ks_tables(params, level, CPU).items()}
+    mod3 = Mod(t["q"], 3)
+    return torch.stack([row_ntt_pass(y, t["roots"], mod3, params.n) for y in digits_pass_a(d, params, level, t)]).int()
+
+
+def two_pass_mod_down(pc, qpart, params, level):
+    """fused_moddown_pass_a then fused_moddown_pass_b, as fusedks.cu runs them:
+    row c·nq + e converts accumulator c's α P-block limbs to q_e; pass B's store
+    is (qpart − ŷ)·P⁻¹."""
+    t = {k: _u32(v) for k, v in T_fops.moddown_tables(params, level, CPU).items()}
+    mod2, mod3 = Mod(t["q"], 2), Mod(t["q"], 3)
+    out = []
+    for c in range(pc.shape[0]):
+        y = modup_pass_a(pc[c], 0, params.alpha, t["p_q"], t["bh"], t["w"], t, params.n)
+        v = row_ntt_pass(y, t["roots"], mod3, params.n)
+        out.append(mod2.montmul((qpart[c].long() - v) % mod2.q, t["pinv"][:, None]))
+    return torch.stack(out).int()
+
+
+def _eq_reference(got: torch.Tensor, want) -> None:
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize("dnum, L", [(2, 5), (4, 7)], ids=["alpha3", "beta4"])
+def test_two_pass_mod_up_equals_the_plain_and_reference_versions(dnum, L):
+    tp = T_P.make_params(1 << 9, L, dnum, check_security=False)
+    rp = R_P.make_params(1 << 9, L, dnum, check_security=False)
+    for level in _levels(tp):
+        d = _residues((level + 1, tp.n), tp.q_primes[: level + 1], 30 + level)
+        got = two_pass_mod_up(d, tp, level)
+        assert torch.equal(got, T_href.mod_up_digits_ref(d, tp, level))
+        _eq_reference(got, R_href.mod_up_digits_ref(jnp.asarray(d.numpy()), rp, level))
+
+
+@pytest.mark.parametrize("n_acc", [2, 6], ids=["C2", "C6"])
+@pytest.mark.parametrize("dnum, L", [(2, 5), (4, 7)], ids=["alpha3", "beta4"])
+def test_two_pass_mod_down_equals_the_plain_and_reference_versions(dnum, L, n_acc):
+    tp = T_P.make_params(1 << 9, L, dnum, check_security=False)
+    rp = R_P.make_params(1 << 9, L, dnum, check_security=False)
+    p_primes = T_poly.primes_for(tp, T_poly.p_idx(tp))
+    for level in _levels(tp):
+        nq = level + 1
+        pc = _residues((n_acc * tp.alpha, tp.n), p_primes * n_acc, 40 + level).reshape(n_acc, tp.alpha, tp.n)
+        qpart = _residues((n_acc * nq, tp.n), tp.q_primes[:nq] * n_acc, 50 + level).reshape(n_acc, nq, tp.n)
+        got = two_pass_mod_down(pc, qpart, tp, level)
+        assert torch.equal(got, T_fref.mod_down_digits_ref(pc, qpart, tp, level))
+        _eq_reference(got, R_fref.mod_down_digits_ref(jnp.asarray(pc.numpy()), jnp.asarray(qpart.numpy()), rp, level))
