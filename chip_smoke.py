@@ -13,9 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      BConv on the staged pipeline, ModDown over a group's 8 accumulators at
      ``lstm`` and at ``lola_mnist_plain``, the hoisted ModUp (at ``lstm``'s
      top level and ragged level 9) and Galois MAC at ``lstm`` and
-     ``lola_mnist_plain`` — bit-exact, launched, timed with CUDA events; the
-     two-pass kernels (NTT, ``fused_ks``, ``fused_moddown``, ``hoist_modup``)
-     print the thread blocks their launcher starts per pass;
+     ``lola_mnist_plain``, and BConv where it is large (the dnum = 1 preset
+     ``packed_bootstrap``'s 58 → 116 and 58 → 58 limbs, ``logreg``'s 17 → 51)
+     — bit-exact, launched, timed with CUDA events; the two-pass kernels (NTT,
+     ``fused_ks``, ``fused_moddown``, ``hoist_modup``) print the thread blocks
+     their launcher starts per pass, and BConv its grid;
   3. run the paths through the public API, each with the launch counters set
      to 0 just before it and read just after, and check each against the
      reference package's SHA-256 digests, dispatch counts and decode errors,
@@ -93,17 +95,28 @@ KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": 
              "fusedks": "fused_ks", "fused_moddown": "fused_moddown", "bconv": "bconv",
              "hoistmodup": "hoist_modup", "hoistmac": "hoist_mac"}
 
-# H100 SXM peaks (NVIDIA data sheet): memory rate, and the non-tensor float32
-# rate, against which the kernels' integer operations are counted.
+# H100 SXM peaks.  Memory: 3.35 TB/s (NVIDIA data sheet).  Integer
+# instructions: an SM issues at most 4 warp instructions a clock, 128 thread
+# operations, so 132 SMs × 128 × 1.98 GHz ≈ 33.5e12 a second; the kernels'
+# counts (MONTMUL, MULMOD, ADDMOD) are such instructions.  (The data sheet's
+# 67 TFLOP/s is the float32 FMA rate, an FMA counted as two operations; the
+# 32-bit integer multiply-add alone issues at 64 a clock per SM on compute
+# capability 9.0, the CUDA programming guide's throughput table.)  Int8
+# tensor-core products: 1,979 TOP/s dense (data sheet), a multiply-add
+# counted as two operations.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = 33.5e12
+PEAK_INT8_OPS_PER_S = 1979e12
 MONTMUL, MULMOD, ADDMOD = 8, 16, 3  # integer operations per modular op
 WORD = 4
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: bytes at the memory rate, or integer
+    operations at the issue ceiling plus int8 tensor-core operations at their
+    peak, whichever is larger (ms, and which one)."""
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S + int8_ops / PEAK_INT8_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -287,7 +300,7 @@ def main() -> int:
     gen.manual_seed(0)
     failures = []
 
-    def check(kname, case, kernel_fn, plain_fn, nbytes, ops, blocks=None):
+    def check(kname, case, kernel_fn, plain_fn, nbytes, ops, blocks=None, grid=None, int8_ops=0):
         k = kernels[kname]["k"]
         before = k.launches
         got = kernel_fn()
@@ -301,15 +314,19 @@ def main() -> int:
         kms = time_ms(kernel_fn, hide_host=True)
         call_ms = time_ms(kernel_fn)
         pms = time_ms(plain_fn, iters=5, warmup=1)
-        bms, by = bound(nbytes, ops)
+        bms, by = bound(nbytes, ops, int8_ops)
         rec = dict(case=case, exact=exact, max_abs_err=err, launched=launched, kernel_ms=kms, call_ms=call_ms,
                    plain_ms=pms, bound_ms=bms, bound_by=by)
+        shown = ""
         if blocks is not None:
             rec["blocks_per_pass"] = list(blocks)
+            shown = f" blocks/pass {blocks[0]}+{blocks[1]}"
+        if grid is not None:
+            rec["grid"] = list(grid)
+            shown = f" grid {grid[0]}x{grid[1]}"
         kernels[kname]["cases"].append(rec)
-        grid = "" if blocks is None else f" blocks/pass {blocks[0]}+{blocks[1]}"
         print(f"  {kname:14s} {case:40s} exact={exact} launched={launched} kernel {kms:.4f} ms "
-              f"call {call_ms:.4f} ms plain {pms:.3f} ms bound {bms:.4f} ms ({by}){grid}")
+              f"call {call_ms:.4f} ms plain {pms:.3f} ms bound {bms:.4f} ms ({by}){shown}")
         if not exact or launched < 1:
             failures.append(f"{kname} {case}")
 
@@ -376,21 +393,27 @@ def main() -> int:
     for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
         check_ntt(f"{MLP['preset']} {tag} {tuple(x.shape)}", kfn, pfn, x, poly.plan_for(mlp_p, mlp_ext))
 
-    # BConv at the staged pipeline's shapes: digit 0 → extended basis, and ModDown's P → q
-    for name in ("lstm", "matmul", MLP["preset"]):
+    # BConv at the staged pipeline's shapes: digit 0 → extended basis, and ModDown's
+    # P → q; then where BConv is large, at the dnum = 1 preset packed_bootstrap
+    # (ModUp 58 → 116, ModDown 58 → 58) and at logreg (17 → 51), all at N = 2^16
+    for name, moddown in (("lstm", True), ("matmul", False), (MLP["preset"], False),
+                          ("packed_bootstrap", True), ("logreg", False)):
         p = P.workload_params(name)
         n, lv = p.n, p.L
         ext = poly.primes_for(p, poly.ext_idx(p, lv))
         src = poly.primes_for(p, tuple(i for i in p.digit(0) if i <= lv))
         convs = [(src, ext)]
-        if name == "lstm":
+        if moddown:
             convs.append((poly.primes_for(p, poly.p_idx(p)), poly.primes_for(p, poly.q_idx(p, lv))))
         for bsrc, dst in convs:
             _, w = rns.bconv_tables(bsrc, dst)
             xh = rand_residues((len(bsrc), n), bsrc, gen)
             k, m = len(bsrc), len(dst)
+            # whatever the design: read x̂, write the output; each of the k·m·n
+            # products is 16 int8 multiply-adds, each output one reduction
             check("bconv", f"{name} ({k}, {n}) -> ({m}, {n})", lambda: bops.bconv(xh, w, dst),
-                  lambda: bref.bconv_ref(xh, w, dst), (k + m) * n * WORD, k * m * n * (MONTMUL + ADDMOD))
+                  lambda: bref.bconv_ref(xh, w, dst), (k + m) * n * WORD, m * n * MONTMUL,
+                  grid=bops.bconv_blocks(k, m, n), int8_ops=2 * 16 * k * m * n)
 
     # the hoisted ModUp and the batched Galois MAC: the lstm group of 4 and the MLP's first baby group
     for name, nrot in (("lstm", len(LSTM_GROUP["rotations"])), (MLP["preset"], len(plan1.baby_steps()))):
@@ -606,7 +629,7 @@ def main() -> int:
             launches=paths[home.get(kname, "mul lstm")][kname], max_abs_err=max(c["max_abs_err"] for c in v["cases"]),
             ms=head["kernel_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, exact=all(c["exact"] for c in v["cases"]), kernel_ms=head["kernel_ms"],
-            blocks_per_pass=head.get("blocks_per_pass"),
+            blocks_per_pass=head.get("blocks_per_pass"), grid=head.get("grid"),
             call_ms=head["call_ms"], shape=head["case"], launches_path=home.get(kname, "mul lstm"),
             launches_by_path={path: launches[kname] for path, launches in paths.items()}, cases=v["cases"],
         ))

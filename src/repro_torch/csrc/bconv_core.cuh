@@ -1,7 +1,7 @@
-// Fast basis conversion, shared by bconv.cu, fusedks.cu and hoistrot.cu: one
-// output coefficient (bconv_coeff), several at once (bconv_coeffs), and pass A
-// of a two-pass ModUp (modup_pass_a), which fused_ks, fused_moddown and
-// hoist_modup run.
+// Fast basis conversion with the prescale, shared by fusedks.cu and
+// hoistrot.cu: several output coefficients of one target limb at once
+// (bconv_coeffs), and pass A of a two-pass ModUp (modup_pass_a), which
+// fused_ks, fused_moddown and hoist_modup run.
 //
 // Conv_{B→C}(x)[e, i] = Σ_s x̂_s[i]·(B̂_s mod c_e)  (mod c_e), with
 // x̂_s = x_s·[B̂_s^{-1}]_{b_s} mod b_s.  Every term is one montmul against the
@@ -16,29 +16,12 @@
 #include "montgomery.cuh"
 #include "ntt_passes.cuh"
 
-// Source rows s in [lo, hi) of x (row s at x + s·n), coefficient i, to target
-// limb e of modulus c.  w_m is (rows, m) row-major: w_m[s·m + e] = W[s, e]·R.
-// With PRESCALE, row s is first multiplied by bh_m[s] = [B̂_s^{-1}]·R mod b_s
-// (b_s = src_q[s]); without it x already holds x̂ and the src tables are unused.
-template <bool PRESCALE>
-__device__ __forceinline__ uint32_t bconv_coeff(const uint32_t* __restrict__ x, size_t i, int n, int lo, int hi,
-                                                const uint32_t* __restrict__ bh_m,
-                                                const uint32_t* __restrict__ src_q,
-                                                const uint32_t* __restrict__ src_qinv,
-                                                const uint32_t* __restrict__ w_m, int m, int e, uint32_t c,
-                                                uint32_t cinv) {
-    uint32_t y = 0;
-    for (int s = lo; s < hi; ++s) {
-        uint32_t xh = x[static_cast<size_t>(s) * n + i];
-        if constexpr (PRESCALE) xh = montmul(xh, bh_m[s], src_q[s], src_qinv[s]);
-        y = addmod(y, montmul(xh, w_m[static_cast<size_t>(s) * m + e], c, cinv), c);
-    }
-    return y;
-}
-
-// bconv_coeff<true> for K coefficients i[0..K) of one target limb at once, into
-// y[0..K): the same terms, reduced and added in the same order, with the source
-// loop outermost so that a thread has K independent loads in flight.
+// K coefficients i[0..K) of target limb e (modulus c) at once, into y[0..K),
+// from source rows s in [lo, hi) of x (row s at x + s·n, modulus src_q[s]):
+// each row is first multiplied by bh_m[s] = [B̂_s^{-1}]·R mod src_q[s], then
+// every term by w_m[s·m + e] = W[s, e]·R mod c, reduced before it is added.
+// The source loop is outermost, so that a thread has K independent loads in
+// flight.
 template <int K>
 __device__ __forceinline__ void bconv_coeffs(uint32_t* y, const uint32_t* __restrict__ x, const size_t* i, int n,
                                              int lo, int hi, const uint32_t* __restrict__ bh_m,
@@ -68,7 +51,7 @@ __device__ __forceinline__ void bconv_coeffs(uint32_t* y, const uint32_t* __rest
 // PASS_SLOTS coefficients a thread at once (bconv_coeffs), each twisted by
 // psi, then the N1-point column NTTs over roots and the inter-pass twiddle tw,
 // stored to y.  psi, roots and tw are the target limb's rows (·R); w_m is
-// (rows, m) as for bconv_coeff.  Pass 2 of the forward NTT (row_ntt_pass)
+// (rows, m) as for bconv_coeffs.  Pass 2 of the forward NTT (row_ntt_pass)
 // finishes the row.
 __device__ __forceinline__ void modup_pass_a(const uint32_t* __restrict__ x, int lo, int hi,
                                              const uint32_t* __restrict__ bh_m, const uint32_t* __restrict__ src_q,

@@ -21,6 +21,15 @@ __device__ __forceinline__ uint32_t montmul(uint32_t a, uint32_t b, uint32_t q, 
     return res >= q ? res - q : res;
 }
 
+// t·R^{-1} mod q for a 64-bit t < q·2^32, canonical in [0, q): the REDC that
+// montmul ends with, for a sum of products formed elsewhere.
+__device__ __forceinline__ uint32_t montredc64(uint64_t t, uint32_t q, uint32_t qinv_neg) {
+    const uint32_t t_lo = static_cast<uint32_t>(t);
+    const uint32_t m = t_lo * qinv_neg;
+    const uint32_t res = static_cast<uint32_t>(t >> 32) + __umulhi(m, q) + (t_lo != 0u);  // < 2q
+    return res >= q ? res - q : res;
+}
+
 // (a·b) mod q for plain (non-Montgomery) a, b < q: a·b·R^{-1}, then ·R^2·R^{-1}.
 __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b, uint32_t q, uint32_t qinv_neg,
                                            uint32_t r2) {

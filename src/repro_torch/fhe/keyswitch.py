@@ -96,10 +96,15 @@ def _moddown_tables(params: CkksParams, level: int):
     return bhat_inv, w, q_primes, pinv
 
 
+@functools.lru_cache(maxsize=2048)
+def _limb_column(consts: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(k, 1) int32 on ``device``, uploaded once per (constants, device)."""
+    return torch.tensor(consts, dtype=torch.int32, device=device)[:, None]
+
+
 def _per_limb(consts, like: torch.Tensor) -> torch.Tensor:
     """(k,) constants < 2^31 broadcast over ``like``'s (k, N) shape (stride 0 along N)."""
-    c = torch.as_tensor(np.asarray(consts).astype(np.int32), device=like.device)
-    return c[:, None].expand(like.shape)
+    return _limb_column(tuple(int(c) for c in np.asarray(consts).reshape(-1)), like.device).expand(like.shape)
 
 
 def _scale_limbs(x, consts, qs):

@@ -11,6 +11,7 @@ are the public API.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -220,6 +221,15 @@ def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bo
     return _rescale(ctx, out) if rescale_after else out
 
 
+@functools.lru_cache(maxsize=512)
+def _rescale_tables(q_last: int, qs_rem: tuple[int, ...], device: torch.device):
+    """The remaining moduli (l, 1) int64 and q_last^{-1} mod each (l, 1) int32,
+    uploaded once per (moduli, device)."""
+    qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
+    return (torch.as_tensor(np.array(qs_rem, np.int64)[:, None], device=device),
+            torch.as_tensor(qinv[:, None], device=device))
+
+
 def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
     """Divide by q_ℓ and drop a level (eval-domain RNS rescale)."""
     params = ctx.params
@@ -227,9 +237,7 @@ def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
     assert lv >= 1, "cannot rescale at level 0"
     q_last = int(params.q_primes[lv])
     qs_rem = _qs(params, lv - 1)
-    qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
-    q_rem = torch.as_tensor(np.array(qs_rem, np.int64)[:, None], device=ct.c0.device)
-    qinv_t = torch.as_tensor(qinv[:, None], device=ct.c0.device)
+    q_rem, qinv_t = _rescale_tables(q_last, qs_rem, ct.c0.device)
 
     def _one(c):
         # iNTT the dropped limb, re-embed its (centred) coefficients in every

@@ -120,8 +120,9 @@ I = ctypes.c_int
 
 
 def pass_blocks(source: str, symbol: str, *args: int) -> tuple[int, int]:
-    """The thread blocks of the two passes a two-pass launcher of ``source``
-    starts, as its C function ``symbol(*args, int blocks[2])`` reports them."""
+    """The two block counts that ``source``'s C function ``symbol(*args, int
+    blocks[2])`` reports for a launch: a two-pass launcher's blocks per pass, or
+    ``bconv``'s grid."""
     blocks = (ctypes.c_int * 2)()
     if getattr(library(source), symbol)(*args, blocks) != 0:
         raise ValueError(f"{symbol} refused {args}")

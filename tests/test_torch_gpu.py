@@ -132,19 +132,39 @@ def test_mul_on_the_card_equals_the_cpu(card):
     assert torch.equal(outs[0].c0.cpu(), outs[1].c0) and torch.equal(outs[0].c1.cpu(), outs[1].c1)
 
 
-@pytest.mark.parametrize("name", ["matmul", "lola_mnist_plain", "lstm"])
+# the staged paths' presets, and the dnum = 1 / large-α presets: packed_bootstrap
+# (58 → 116 limbs, and ModDown's 58 → 58), resnet20 (42 → 84), logreg (17 → 51)
+@pytest.mark.parametrize("name", ["matmul", "lola_mnist_plain", "lstm", "packed_bootstrap", "resnet20", "logreg"])
 def test_bconv_kernel_matches_plain(card, name):
     p = P.workload_params(name)
     before = bops.KERNEL.launches
+    p_primes = poly.primes_for(p, poly.p_idx(p))
     for level in sorted({p.L, 1}):
         dst = poly.primes_for(p, poly.ext_idx(p, level))
-        for j in range(p.beta(level)):
-            src = poly.primes_for(p, tuple(i for i in p.digit(j) if i <= level))
-            _, w = rns.bconv_tables(src, dst)
-            x = _residues((len(src), p.n), src, level + j, card)
-            assert torch.equal(bops.bconv(x, w, dst), bref.bconv_ref(x, w, dst))
+        convs = [poly.primes_for(p, tuple(i for i in p.digit(j) if i <= level)) for j in range(p.beta(level))]
+        for src, to in [(src, dst) for src in convs] + [(p_primes, poly.primes_for(p, poly.q_idx(p, level)))]:
+            _, w = rns.bconv_tables(src, to)
+            x = _residues((len(src), p.n), src, level + len(to), card)
+            assert torch.equal(bops.bconv(x, w, to), bref.bconv_ref(x, w, to))
     torch.cuda.synchronize()
     assert bops.KERNEL.launches > before
+
+
+def test_bconv_kernel_refuses_what_it_does_not_take(card):
+    chain = P.master_chain(66)
+    _, w = rns.bconv_tables(chain[:65], chain[65:])
+    before = bops.KERNEL.launches
+    with pytest.raises(ValueError, match="k ≤ 64"):
+        bops.bconv(_residues((65, 1 << 13), chain[:65], 0, card), w, chain[65:])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        bops.bconv(_residues((3, 192), chain[:3], 1, card), w[:3], chain[65:])
+    assert bops.KERNEL.launches == before
+    # (coefficient blocks, target chunks): one chunk of every target at N = 2^16,
+    # target chunks at N = 2^13 where the coefficient blocks alone are 64
+    assert bops.bconv_blocks(58, 116, 1 << 16) == (512, 1)
+    assert bops.bconv_blocks(7, 21, 1 << 16) == (512, 1)
+    assert bops.bconv_blocks(1, 4, 1 << 13) == (64, 4)
+    assert bops.bconv_blocks(3, 10, 1 << 13) == (64, 5)
 
 
 @pytest.mark.parametrize("name", ["lola_mnist_plain", "lstm", "lola_cifar_plain"])
