@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``lstm`` and at ``lola_mnist_plain``, the hoisted ModUp (at ``lstm``'s
      top level and ragged level 9) and Galois MAC at ``lstm`` and
      ``lola_mnist_plain``, and BConv where it is large (the dnum = 1 preset
-     ``packed_bootstrap``'s 58 → 116 and 58 → 58 limbs, ``logreg``'s 17 → 51)
+     ``packed_bootstrap``'s 58 → 116 and 58 → 58 limbs, ``logreg``'s 17 → 51),
+     the key-switch kernels with one digit (β = 1) at ``packed_bootstrap``'s
+     top level (58 → 116 limbs) with its 58-limb products and NTTs, and the
+     bootstrap ring's BConv and NTT
      — bit-exact, launched, timed with CUDA events; the two-pass kernels (NTT,
      ``fused_ks``, ``fused_moddown``, ``hoist_modup``) print the thread blocks
      their launcher starts per pass, and BConv its grid;
@@ -29,6 +32,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            ``lola_mnist_plain`` (two hoisted BSGS matvecs and a square);
        3c. a hoisted group of rotations by 1, 2, 3, 4 at ``lstm``, and one
            standard rotation;
+       3d. a whole CKKS bootstrap (ModRaise, CoeffToSlot, EvalMod,
+           SlotToCoeff) at the ring of ``tests/test_bootstrap.py``
+           (n = 2^8, L = 18, dnum = 1), under the default policy (fused,
+           hoisted) and under ``ExecPolicy(backend="staged")``: every one of
+           the seven kernels launches;
+       3e. ModRaise (1 → 58 limbs) and EvalMod (a degree-32 Chebyshev tree,
+           31 relinearisations with one key-switch digit) at the
+           ``packed_bootstrap`` preset's full width (N = 2^16, L = 57);
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -89,6 +100,37 @@ LSTM_GROUP = dict(
     preset="lstm", rotations=(1, 2, 3, 4),
     digest="0afacbe461cfb47d9fae23220f7061d55273193220e09722cddd83b5dc7e35d5",
     decode_errors=(0.11318043501489981, 0.09604106998682596, 0.16380365372399094, 0.06704722754331537),
+)
+# The bootstrap of tests/test_bootstrap.py, from the reference package on the CPU:
+#   p = P.make_params(1 << 8, 18, 1, check_security=False); bctx = B.build_context(p, seed=0, h=32)
+#   fc = FheContext(params=p, keys=bctx.keys, policy=ExecPolicy(backend="ref"))
+#   rng = np.random.default_rng(7); z = rng.normal(size=p.slots) * 0.4 + 1j * rng.normal(size=p.slots) * 0.4
+#   ct = ops.level_drop(fc.mul_const(fc.encrypt(fc.encode(z)), 1 / 64), 0)
+#   out = fc.bootstrap(bctx, ct, post_scale=64)
+# digest(out), out.level, the reference's max |decode(out) − z| and the
+# dispatches of that bootstrap (the staged pipeline, baby steps hoisted).
+# max_err is tests/test_bootstrap.py's bound.
+BOOTSTRAP = dict(
+    n=1 << 8, L=18, dnum=1, h=32, level=6, max_err=5e-2,
+    digest="b1e6b0bbdf170beb7348a98ccbd92ee79dc4d513ea172400ab8c7face8a10d42",
+    decode_error=0.0036717060197168348,
+    staged_dispatches={"intt": 1454, "ntt": 2269, "mulmod": 4534, "bconv": 682, "addmod": 2774, "submod": 1418},
+)
+# ModRaise and EvalMod at packed_bootstrap (N = 2^16, L = 57, dnum = 1), from the
+# reference package on the CPU with ks = K.full_keyset(p, seed=0) (no Galois keys),
+# the BootstrapContext of packed_bootstrap_context (K = 2, degree 32, no BSGS plans)
+# and ExecPolicy(backend="ref"):
+#   z = np.random.default_rng(0).normal(size=p.slots) * 0.4
+#   raised = fc.mod_raise(bctx, ops.level_drop(fc.mul_const(fc.encrypt(fc.encode(z)), 1 / 64), 0))
+#   x = np.random.default_rng(3).uniform(-0.95, 0.95, p.slots)
+#   em = fc.eval_mod(bctx, fc.encrypt(fc.encode(x)), coeff_scale=0.5 * (K + 0.5) * q0)
+# digest(raised) at level 57, digest(em) at level 50, and the reference's
+# max |decode(em).real − Chebyshev(sine_coeffs)(0.5·x)|.
+PACKED = dict(
+    preset="packed_bootstrap", K=2, degree=32, eval_mod_level=50,
+    mod_raise="08c5f260c344af30f969bbced73bc735e1a32c307f25297b684362148c63d6ed",
+    eval_mod="65bf9a4466424abd02fda176972ba06ff8be6d33bf4ac70104eee9fdd296bf2a",
+    decode_error=0.0008170160934633103,
 )
 # Which kernel each dispatch op launches.
 KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": "ntt", "intt": "ntt",
@@ -170,6 +212,20 @@ def mlp_model(p) -> dict:
     x_slots = np.zeros(p.slots)
     x_slots[:16] = x
     return dict(m1=block(w1), m2=block(w2), x_slots=x_slots, want=((x @ w1) ** 2) @ w2)
+
+
+def packed_bootstrap_context(p, keys):
+    """The ``BootstrapContext`` of ``PACKED``, built field by field: no BSGS
+    plans (CoeffToSlot's dense slots × slots matrices would take 16 GiB each at
+    N = 2^16, and ModRaise and EvalMod use none), EvalMod at K = 2 with
+    ``build_context``'s target function and default degree."""
+    from repro_torch.fhe import bootstrap as B
+    from repro_torch.fhe import polyeval
+
+    k, degree = PACKED["K"], PACKED["degree"]
+    return B.BootstrapContext(params=p, keys=keys, cts_plans=(), stc_plans=(),
+                              sine_coeffs=polyeval.chebyshev_fit(B.eval_mod_target(p, k), degree), K=k,
+                              eval_mod_degree=degree)
 
 
 def digest(*cts) -> str:
@@ -396,9 +452,10 @@ def main() -> int:
     # BConv at the staged pipeline's shapes: digit 0 → extended basis, and ModDown's
     # P → q; then where BConv is large, at the dnum = 1 preset packed_bootstrap
     # (ModUp 58 → 116, ModDown 58 → 58) and at logreg (17 → 51), all at N = 2^16
+    boot_p = P.make_params(BOOTSTRAP["n"], BOOTSTRAP["L"], BOOTSTRAP["dnum"], check_security=False)
     for name, moddown in (("lstm", True), ("matmul", False), (MLP["preset"], False),
-                          ("packed_bootstrap", True), ("logreg", False)):
-        p = P.workload_params(name)
+                          ("packed_bootstrap", True), ("logreg", False), ("bootstrap ring", True)):
+        p = boot_p if name == "bootstrap ring" else P.workload_params(name)
         n, lv = p.n, p.L
         ext = poly.primes_for(p, poly.ext_idx(p, lv))
         src = poly.primes_for(p, tuple(i for i in p.digit(0) if i <= lv))
@@ -436,6 +493,46 @@ def main() -> int:
               lambda: href.galois_mac_ref(dig, ksk, p, lv), (beta * m + nrot * 2 * beta * m + nrot * 2 * m) * n * WORD,
               nrot * 2 * m * n * beta * (MULMOD + ADDMOD))
         del dig, ksk
+
+    # one key-switch digit (β = 1) at packed_bootstrap's top level: 58 → 116
+    # limbs, the shapes of EvalMod's first relinearisations (phase 3e); the
+    # device time of each pass comes from the profiler
+    pb = P.workload_params(PACKED["preset"])
+    check_fused_ks(pb, pb.L, f"{PACKED['preset']} level={pb.L} beta={pb.beta(pb.L)}")
+    check_fused_moddown(PACKED["preset"], pb, 2)
+    pb_nq, pb_m = pb.L + 1, pb.L + 1 + pb.alpha
+    pb_ext = poly.primes_for(pb, poly.ext_idx(pb, pb.L))
+    d = rand_residues((pb_nq, pb.n), pb.q_primes, gen)
+    check("hoist_modup", f"{PACKED['preset']} level={pb.L} d ({pb_nq}, {pb.n}) -> (1, {pb_m}, {pb.n})",
+          lambda: hops.mod_up_digits(d, pb, pb.L), lambda: href.mod_up_digits_ref(d, pb, pb.L),
+          (pb_nq + 2 * pb_m + pb_m) * pb.n * WORD, modup_ops(pb.n, pb_nq, pb_m, pb_m),
+          blocks=hops.modup_blocks_per_pass(1, pb_m, pb.n))
+    dig = rand_residues((pb_m, pb.n), pb_ext, gen).reshape(1, pb_m, pb.n)
+    ksk = rand_residues((2 * pb_m, pb.n), pb_ext * 2, gen).reshape(1, 1, 2, pb_m, pb.n)
+    check("hoist_mac", f"{PACKED['preset']} R=1 ksk {tuple(ksk.shape)}", lambda: hops.galois_mac(dig, ksk, pb, pb.L),
+          lambda: href.galois_mac_ref(dig, ksk, pb, pb.L), (pb_m + 2 * pb_m + 2 * pb_m) * pb.n * WORD,
+          2 * pb_m * pb.n * (MULMOD + ADDMOD))
+    ksk = rand_residues((2 * pb_m, pb.n), pb_ext * 2, gen).reshape(1, 2, pb_m, pb.n)
+    pc = rand_residues((2 * pb.alpha, pb.n), poly.primes_for(pb, poly.p_idx(pb)) * 2, gen).reshape(2, pb.alpha, pb.n)
+    qpart = rand_residues((2 * pb_nq, pb.n), pb.q_primes * 2, gen).reshape(2, pb_nq, pb.n)
+    for label, fn in (("fused_ks", lambda: fops.key_switch_digits(d, ksk, pb, pb.L)),
+                      ("fused_moddown C=2", lambda: fops.mod_down_digits(pc, qpart, pb, pb.L)),
+                      ("hoist_modup", lambda: hops.mod_up_digits(d, pb, pb.L))):
+        _, _, by_name = device_busy(fn)
+        print(f"    {label} at {PACKED['preset']} by pass (profiler, ms): "
+              + ", ".join(f"{k[:48]} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])))
+    # ModRaise's NTT and EvalMod's products at the top level's 58 limbs
+    qa, qb = rand_residues((pb_nq, pb.n), pb.q_primes, gen), rand_residues((pb_nq, pb.n), pb.q_primes, gen)
+    check("modops", f"{PACKED['preset']} mul ({pb_nq}, {pb.n})", lambda: mops.pointwise_mulmod(qa, qb, pb.q_primes),
+          lambda: mref.mulmod_ref(qa, qb, pb.q_primes), 3 * pb_nq * pb.n * WORD, pb_nq * pb.n * MULMOD)
+    for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
+        check_ntt(f"{PACKED['preset']} {tag} {tuple(qa.shape)}", kfn, pfn, qa, poly.plan_for(pb, poly.q_idx(pb, pb.L)))
+    del d, dig, ksk, pc, qpart, qa, qb
+    # the bootstrap ring's widest NTT: the 38 extended limbs of its top level
+    boot_ext = poly.ext_idx(boot_p, boot_p.L)
+    x = rand_residues((len(boot_ext), boot_p.n), poly.primes_for(boot_p, boot_ext), gen)
+    for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
+        check_ntt(f"bootstrap ring {tag} {tuple(x.shape)}", kfn, pfn, x, poly.plan_for(boot_p, boot_ext))
     if failures:
         print("FAILED kernel checks: " + ", ".join(failures), file=sys.stderr)
         return 1
@@ -612,6 +709,102 @@ def main() -> int:
         ("lstm group of 4", lambda: ctx.rotate_hoisted_group(ct, rotations)),
         ("lstm 4 rotates", four),
     ):
+        busy, wall, by_name = device_busy(fn)
+        print(f"  profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall under the profiler, "
+              f"idle share {1 - busy / wall:.3f}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
+
+    # -- 3d. a whole bootstrap at the ring of tests/test_bootstrap.py --------------
+    print(f"bootstrap at n = {BOOTSTRAP['n']}, L = {BOOTSTRAP['L']}, dnum = {BOOTSTRAP['dnum']} "
+          "(build_context, bootstrap under the default and the staged policy):")
+    from repro_torch.fhe import bootstrap as B
+
+    steps = {}
+    bctx = timed(steps, "bctx build", lambda: B.build_context(boot_p, seed=0, h=BOOTSTRAP["h"], device=DEVICE))
+    rng = np.random.default_rng(7)
+    z = rng.normal(size=boot_p.slots) * 0.4 + 1j * rng.normal(size=boot_p.slots) * 0.4
+    boot_ctxs = {}
+    for label, policy, pipeline in (("bootstrap", ExecPolicy(), "fused"),
+                                    ("staged bootstrap", ExecPolicy(backend="staged"), "staged")):
+        fc = FheContext(params=boot_p, keys=bctx.keys, policy=policy, device=DEVICE)
+        ct = fc.level_drop(fc.mul_const(fc.encrypt(fc.encode(z)), 1 / 64), 0)
+        boot = lambda fc=fc, ct=ct: fc.bootstrap(bctx, ct, post_scale=64)
+        reset_launches()
+        with dispatch.count_dispatches() as counts:
+            out = timed(steps, label, boot)
+        paths[label] = launched = read_launches()
+        again = timed(steps, f"{label} again", boot)
+        boot_ctxs[label] = boot
+        dg = digest(out)
+        err = float(np.max(np.abs(fc.decrypt_decode(out) - z)))
+        print(f"  {label}: policy {fc.policy_key()} pipeline={fc.pipeline} level {out.level} digest {dg[:16]} "
+              f"decode err {err:.6e} (reference {BOOTSTRAP['decode_error']:.6e})")
+        print(f"  {label}: {dispatch.total(counts)} dispatches {dict(counts)} launches {launched}")
+        problems = []
+        if fc.pipeline != pipeline or dg != BOOTSTRAP["digest"] or digest(again) != dg:
+            problems.append(f"pipeline {fc.pipeline}, digest {dg} != reference {BOOTSTRAP['digest']}")
+        if out.level != BOOTSTRAP["level"] or out.level < 5:
+            problems.append(f"level {out.level} != {BOOTSTRAP['level']}")
+        if not err <= BOOTSTRAP["max_err"] or abs(err - BOOTSTRAP["decode_error"]) > 1e-9:
+            problems.append(f"decode error {err} (reference {BOOTSTRAP['decode_error']}, bound {BOOTSTRAP['max_err']})")
+        if pipeline == "staged" and dict(counts) != BOOTSTRAP["staged_dispatches"]:
+            problems.append(f"dispatches {dict(counts)} != {BOOTSTRAP['staged_dispatches']}")
+        if launched != launches_of(counts):
+            problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
+        if problems:
+            print(f"FAILED {label}: " + "; ".join(problems), file=sys.stderr)
+            return 1
+    unlaunched = [k for k in kernels if paths["bootstrap"][k] + paths["staged bootstrap"][k] < 1]
+    if unlaunched:
+        print(f"FAILED bootstrap: kernels not launched by either bootstrap: {unlaunched}", file=sys.stderr)
+        return 1
+    print("  " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+
+    # -- 3e. ModRaise and EvalMod at packed_bootstrap, full width -----------------
+    pp = P.workload_params(PACKED["preset"])
+    print(f"ModRaise and EvalMod at {PACKED['preset']} (N = {pp.n}, L = {pp.L}, dnum = {pp.dnum}, "
+          f"K = {PACKED['K']}, degree {PACKED['degree']}):")
+    steps = {}
+    ks = timed(steps, "keygen", lambda: K.full_keyset(pp, seed=0, device=DEVICE))
+    pbctx = packed_bootstrap_context(pp, ks)
+    fc = FheContext(params=pp, keys=ks, device=DEVICE)
+    zp = np.random.default_rng(0).normal(size=pp.slots) * 0.4
+    ct = fc.level_drop(fc.mul_const(fc.encrypt(fc.encode(zp)), 1 / 64), 0)
+    reset_launches()
+    with dispatch.count_dispatches() as rcounts:
+        raised = timed(steps, "mod_raise", lambda: fc.mod_raise(pbctx, ct))
+    paths["packed mod_raise"] = raise_launched = read_launches()
+    x = np.random.default_rng(3).uniform(-0.95, 0.95, pp.slots)
+    xct = fc.encrypt(fc.encode(x))
+    coeff_scale = 0.5 * (PACKED["K"] + 0.5) * float(pp.q_primes[0])
+    eval_mod = lambda: fc.eval_mod(pbctx, xct, coeff_scale)
+    reset_launches()
+    with dispatch.count_dispatches() as ecounts:
+        em = timed(steps, "eval_mod", eval_mod)
+    paths["packed eval_mod"] = em_launched = read_launches()
+    err = float(np.max(np.abs(fc.decrypt_decode(em).real - np.polynomial.chebyshev.Chebyshev(pbctx.sine_coeffs)(0.5 * x))))
+    print("  " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+    print(f"  mod_raise: level {raised.level} digest {digest(raised)[:16]} dispatches {dict(rcounts)}")
+    print(f"  eval_mod: level {em.level} digest {digest(em)[:16]} decode err {err:.6e} "
+          f"(reference {PACKED['decode_error']:.6e}) dispatches {dict(ecounts)} launches {em_launched}")
+    problems = []
+    if raised.level != pp.L or digest(raised) != PACKED["mod_raise"]:
+        problems.append(f"mod_raise level {raised.level}, digest {digest(raised)} != reference {PACKED['mod_raise']}")
+    if em.level != PACKED["eval_mod_level"] or digest(em) != PACKED["eval_mod"]:
+        problems.append(f"eval_mod level {em.level}, digest {digest(em)} != reference {PACKED['eval_mod']}")
+    if abs(err - PACKED["decode_error"]) > 1e-9:
+        problems.append(f"eval_mod decode error {err} != reference {PACKED['decode_error']}")
+    if raise_launched != launches_of(rcounts) or em_launched != launches_of(ecounts):
+        problems.append(f"launches {raise_launched}, {em_launched} != dispatches")
+    if min(em_launched[k] for k in mul_kernels) < 1 or ecounts.get("fusedks") != PACKED["degree"] - 1:
+        problems.append(f"eval_mod launches {em_launched}, {ecounts.get('fusedks')} fused key-switches")
+    if problems:
+        print("FAILED packed_bootstrap path: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    for label, fn in (("bootstrap (fused, hoisted)", boot_ctxs["bootstrap"]),
+                      ("bootstrap (staged)", boot_ctxs["staged bootstrap"]),
+                      (f"eval_mod at {PACKED['preset']}", eval_mod)):
         busy, wall, by_name = device_busy(fn)
         print(f"  profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall under the profiler, "
               f"idle share {1 - busy / wall:.3f}")

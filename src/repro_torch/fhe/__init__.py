@@ -4,14 +4,15 @@ Residues are int32 tensors (every prime is < 2^31); the plain versions of the
 kernels compute in int64 and the kernels read the buffers as uint32_t.
 
 Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``),
-and the BSGS planning module ``linear``, exported lazily so that
+and the modules ``linear`` (BSGS planning), ``polyeval`` (Chebyshev
+evaluation) and ``bootstrap`` (``build_context``), exported lazily so that
 ``repro_torch.fhe.params`` and friends stay cheap.
 """
 
 import importlib
 
 _CONTEXT_EXPORTS = ("FheContext", "ExecPolicy")
-_LAZY_MODULES = ("linear",)
+_LAZY_MODULES = ("linear", "polyeval", "bootstrap")
 
 
 def __getattr__(name):

@@ -13,7 +13,7 @@
 
 Quick use::
 
-    from repro_torch.fhe import FheContext, ExecPolicy, keys as K, params as P
+    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, keys as K, params as P
 
     p = P.workload_params("matmul")
     ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=(1, 2)))
@@ -22,6 +22,11 @@ Quick use::
     g = ctx.rotate_hoisted_group(ct, (1, 2))      # {1: rot_1(x), 2: rot_2(x)}, one ModUp
     plan = ctx.plan_matrix(m, tol=1e-12)          # BSGS diagonals of an slots×slots matrix
     mv = ctx.apply_bsgs(ct, plan)                 # needs keys for plan.rotations()
+    y = ctx.eval_poly(ct, coeffs)                 # Σ c_i·T_i(x), Chebyshev basis
+
+    bp = P.make_params(1 << 8, 18, 1, check_security=False)  # a chain deep enough to bootstrap
+    bctx = bootstrap.build_context(bp, seed=0, h=32)          # BSGS plans, sine fit, Galois keys
+    fresh = FheContext(params=bp, keys=bctx.keys).bootstrap(bctx, exhausted, post_scale=64)
 """
 
 from __future__ import annotations
@@ -30,11 +35,13 @@ import dataclasses
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
 
-from . import keyswitch, linear, ops
+from . import bootstrap as _bootstrap
+from . import keyswitch, linear, ops, polyeval
 from .keys import KeySet, SwitchingKey
 from .params import CkksParams
 
@@ -113,7 +120,7 @@ class FheContext:
 
     def __post_init__(self):
         if self.params.scheme != "ckks":
-            raise NotImplementedError("BGV is not ported yet (ROADMAP Queue 1 item 7)")
+            raise NotImplementedError("BGV is not ported yet (fhe/bgv.py, ROADMAP Queue 1)")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FheContext on device 'cuda' needs a CUDA card; pass device='cpu' for the CPU")
@@ -226,6 +233,10 @@ class FheContext:
         return ops._mul_const(self, a, c, rescale_after)
 
     @_hooked
+    def mul_const_exact(self, a, c, target_scale: float):
+        return ops._mul_const_exact(self, a, c, target_scale)
+
+    @_hooked
     def mul(self, a, b, rlk: SwitchingKey | None = None, rescale_after: bool = True):
         """Ciphertext-ciphertext multiplication with relinearisation."""
         rlk = rlk if rlk is not None else self.require_keys().rlk
@@ -292,3 +303,63 @@ class FheContext:
     @_hooked
     def imag_part(self, ct):
         return linear._imag_part(self, ct)
+
+    # -- polynomial evaluation ----------------------------------------------
+
+    @_hooked
+    def force_to(self, ct, level: int, scale: float):
+        return polyeval._force_to(self, ct, level, scale)
+
+    @_hooked
+    def add_any(self, a, b):
+        return polyeval._add_any(self, a, b)
+
+    @_hooked
+    def chebyshev_basis(self, x, degree: int) -> polyeval.ChebyshevBasis:
+        return polyeval.ChebyshevBasis(self, x, degree)
+
+    @_hooked
+    def eval_poly(self, ct, coeffs, degree: int | None = None):
+        """Σ c_i·T_i(ct) in the Chebyshev basis (exact scale discipline)."""
+        degree = len(np.asarray(coeffs)) - 1 if degree is None else degree
+        basis = polyeval.ChebyshevBasis(self, ct, degree)
+        return polyeval._eval_chebyshev(self, basis, coeffs)
+
+    @_hooked
+    def eval_chebyshev(self, basis: polyeval.ChebyshevBasis, coeffs):
+        return polyeval._eval_chebyshev(self, basis, coeffs)
+
+    # -- bootstrapping -------------------------------------------------------
+
+    @_hooked
+    def bootstrap(self, bctx: _bootstrap.BootstrapContext, ct, post_scale: float | None = None):
+        """Refresh an exhausted ciphertext through ``bctx``'s precomputed
+        plans/keys under THIS context's execution policy."""
+        return _bootstrap._bootstrap(self._bootstrap_ctx(bctx), bctx, ct, post_scale)
+
+    @_hooked
+    def mod_raise(self, bctx, ct):
+        return _bootstrap._mod_raise(self._bootstrap_ctx(bctx), bctx, ct)
+
+    @_hooked
+    def coeff_to_slot(self, bctx, ct):
+        return _bootstrap._coeff_to_slot(self._bootstrap_ctx(bctx), bctx, ct)
+
+    @_hooked
+    def eval_mod(self, bctx, ct, coeff_scale: float):
+        return _bootstrap._eval_mod(self._bootstrap_ctx(bctx), bctx, ct, coeff_scale)
+
+    @_hooked
+    def slot_to_coeff(self, bctx, a0, a1):
+        return _bootstrap._slot_to_coeff(self._bootstrap_ctx(bctx), bctx, a0, a1)
+
+    def _bootstrap_ctx(self, bctx) -> "FheContext":
+        """This policy over the bootstrap context's params/keys (the plans are
+        precomputed against those — a mismatched KeySet would be unsound)."""
+        assert bctx.params == self.params, "BootstrapContext params differ from this FheContext's params"
+        assert bctx.keys.device.type == self.device.type, (
+            f"BootstrapContext keys live on {bctx.keys.device}, the context on {self.device}"
+        )
+        if self.keys is bctx.keys:
+            return self
+        return dataclasses.replace(self, keys=bctx.keys)

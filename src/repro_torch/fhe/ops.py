@@ -198,6 +198,21 @@ def _mul_const(ctx, a: Ciphertext, c, rescale_after: bool = True) -> Ciphertext:
     return _mul_plain(ctx, a, _encode_const(ctx, c, a.level, ctx.params.scale), rescale_after)
 
 
+def _mul_const_exact(ctx, a: Ciphertext, c, target_scale: float) -> Ciphertext:
+    """a·c with the constant's encoding scale chosen so the rescaled result has
+    exactly ``target_scale`` — the anchor that keeps scale bookkeeping from
+    drifting through multiplicative trees (see polyeval).  The float
+    expression is the reference package's, in its order: another rounding of
+    the encoding scale is another plaintext, and so another ciphertext."""
+    params = ctx.params
+    q = float(params.q_primes[a.level])
+    enc_scale = target_scale * q / a.scale
+    assert enc_scale > 256.0, f"enc_scale underflow ({enc_scale}); scale drift upstream"
+    pt = _encode_const(ctx, c, a.level, enc_scale)
+    out = _mul_plain(ctx, a, pt, rescale_after=True)
+    return Ciphertext(out.c0, out.c1, out.level, target_scale)
+
+
 def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bool = True) -> Ciphertext:
     """Full homomorphic multiplication with relinearisation (key-switch of d2)."""
     params = ctx.params

@@ -2,8 +2,8 @@
 
 Every test needs a CUDA card, ``nvcc`` and sm_90a (an H100): each skips inside
 the ``card`` fixture where there is none.  The last tests run the rotation
-slice end to end on the card against the reference digests of
-``chip_smoke.py``.  Run them on the card with
+slice and the n = 2^8 bootstrap end to end on the card against the
+reference digests of ``chip_smoke.py``.  Run them on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
 
@@ -99,7 +99,8 @@ def test_two_pass_kernels_spread_each_limb_over_many_blocks(card):
         nops.ntt_fwd(torch.zeros((1, 1 << 7), dtype=torch.int32, device=card), nttmod.build_plan(1 << 7, P.master_chain(1)))
 
 
-@pytest.mark.parametrize("name", ["matmul", "lstm", "lola_cifar_plain", "dblookup"])
+# packed_bootstrap: one digit (β = 1) over 58 limbs, m = 116 at level 57 and 60 at level 1
+@pytest.mark.parametrize("name", ["matmul", "lstm", "lola_cifar_plain", "dblookup", "packed_bootstrap"])
 def test_fused_kernels_match_plain(card, name):
     p = P.workload_params(name)
     # lstm's level 9: 10 limbs in digits of 7, so the second digit is ragged; lola_cifar_plain: β = 4
@@ -167,7 +168,7 @@ def test_bconv_kernel_refuses_what_it_does_not_take(card):
     assert bops.bconv_blocks(3, 10, 1 << 13) == (64, 5)
 
 
-@pytest.mark.parametrize("name", ["lola_mnist_plain", "lstm", "lola_cifar_plain"])
+@pytest.mark.parametrize("name", ["lola_mnist_plain", "lstm", "lola_cifar_plain", "packed_bootstrap"])
 def test_hoist_kernels_match_plain(card, name):
     p = P.workload_params(name)
     # lstm's level 9: 10 limbs in digits of 7, so the second digit is ragged; lola_cifar_plain: β = 4
@@ -245,3 +246,23 @@ def test_lstm_hoisted_group_digest_on_the_card(card):
     ct = ctx.encrypt(ctx.encode(np.random.default_rng(0).normal(size=p.slots) * 0.4))
     g = ctx.rotate_hoisted_group(ct, ref["rotations"])
     assert cs.digest(*(g[r] for r in ref["rotations"])) == ref["digest"]
+
+
+def test_bootstrap_on_the_card_equals_the_cpu(card):
+    """The n = 2^8 bootstrap of tests/test_bootstrap.py: fused and staged on the
+    card, the plain versions on the CPU, and chip_smoke.py's reference digest."""
+    from repro_torch.fhe import bootstrap as B
+
+    cs = _chip_smoke()
+    p = P.make_params(cs.BOOTSTRAP["n"], cs.BOOTSTRAP["L"], cs.BOOTSTRAP["dnum"], check_security=False)
+    rng = np.random.default_rng(7)
+    z = rng.normal(size=p.slots) * 0.4 + 1j * rng.normal(size=p.slots) * 0.4
+    outs = []
+    for device, backend in ((card, "auto"), (card, "staged"), ("cpu", "ref")):
+        bctx = B.build_context(p, seed=0, h=cs.BOOTSTRAP["h"], device=device)
+        ctx = FheContext(params=p, keys=bctx.keys, policy=ExecPolicy(backend=backend), device=device)
+        ct = ctx.level_drop(ctx.mul_const(ctx.encrypt(ctx.encode(z)), 1 / 64), 0)
+        outs.append(ctx.bootstrap(bctx, ct, post_scale=64))
+    for got in outs[:2]:
+        assert torch.equal(got.c0.cpu(), outs[2].c0) and torch.equal(got.c1.cpu(), outs[2].c1)
+    assert cs.digest(outs[0]) == cs.BOOTSTRAP["digest"]
