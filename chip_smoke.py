@@ -16,8 +16,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``lola_mnist_plain``, and BConv where it is large (the dnum = 1 preset
      ``packed_bootstrap``'s 58 → 116 and 58 → 58 limbs, ``logreg``'s 17 → 51),
      the key-switch kernels with one digit (β = 1) at ``packed_bootstrap``'s
-     top level (58 → 116 limbs) with its 58-limb products and NTTs, and the
-     bootstrap ring's BConv and NTT
+     top level (58 → 116 limbs) with its 58-limb products, sums, differences
+     and NTTs, the bootstrap ring's BConv and NTT, and the BGV presets' shapes
+     that no other case has (``exact_count``'s products, its t-scaling product
+     by a per-limb column over the extended basis, its NTT, key-switch kernels
+     and BConvs; ``psi``'s ``fused_ks``)
      — bit-exact, launched, timed with CUDA events; the two-pass kernels (NTT,
      ``fused_ks``, ``fused_moddown``, ``hoist_modup``) print the thread blocks
      their launcher starts per pass, and BConv its grid;
@@ -40,6 +43,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
        3e. ModRaise (1 → 58 limbs) and EvalMod (a degree-32 Chebyshev tree,
            31 relinearisations with one key-switch digit) at the
            ``packed_bootstrap`` preset's full width (N = 2^16, L = 57);
+       3f. BGV at the ``psi`` (N = 2^13, L = 6, t = 2) and ``exact_count``
+           (N = 2^13, L = 4, t = 2^16) presets' full width, under the default
+           (fused) policy and ``ExecPolicy(backend="staged")``: encode,
+           encrypt, add, sub, negate, a depth-2 product chain with a mod-switch
+           after each product, one more product with an explicit
+           ``ctx.mod_switch``, decrypt and decode, each output against the
+           reference's digest and every decoded integer against the
+           negacyclic oracle mod t;
+       3g. the multi-job executor: 8 jobs of ``ctx.mul`` at ``matmul`` over 8
+           affiliations, one CUDA stream each, from cold table caches; each
+           job against its lone ``ctx.mul`` and the reference's digest, the
+           kernels of the profiler's trace on ≥ 8 distinct streams, and the
+           host time of the 8 jobs on 8 streams against 1 stream;
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -131,6 +147,53 @@ PACKED = dict(
     mod_raise="08c5f260c344af30f969bbced73bc735e1a32c307f25297b684362148c63d6ed",
     eval_mod="65bf9a4466424abd02fda176972ba06ff8be6d33bf4ac70104eee9fdd296bf2a",
     decode_error=0.0008170160934633103,
+)
+# BGV at the psi and exact_count presets, from the reference package on the CPU:
+#   p = P.workload_params(name); ks = K.full_keyset(p, seed=0)
+#   ctx = FheContext(params=p, keys=ks, policy=ExecPolicy(backend="ref"))
+#   outs, decoded = bgv_path(ctx, bgv_messages(p))
+# the level and digest(outs[k]) of each output; its decoded integers equal
+# bgv_oracle(...) in both packages.  The reference's fused pipeline gives the same
+# digests.  Dispatches of one bgv_path (encode to decode) in the reference, under
+# backend="ref" (staged) and "fused": both presets have dnum = 3, so three
+# key-switch digits at the top level and two below at both.
+BGV = {
+    "psi": dict(levels=dict(add=6, sub=6, neg=6, ab=5, abc=4, switched=3),
+                digests=dict(add="fcf3ebe8fbd7493c13292740b04ff84df2a0b8170c149fbe706258b7897fa635",
+                             sub="47ca919395392d7b515fd44f6066c172b9ae23aa23311abcd3725c65d63503c6",
+                             neg="7b047998b7a58994a5edc6e15d46bff2c3d162ac1361a40f73bcaf37683dd131",
+                             ab="b7be7dd494a19c187ed5897191c0989b06f63a5b7e0c6ab09e4836b526d9f0d4",
+                             abc="ab7ce5f15db75e16079752b774cf8520f76f16d02b1b4869ebfbf77962ae1437",
+                             switched="b666b7cd80f0244b4237196aa746c50454b5ecfa1206b4267993a5176134946e")),
+    "exact_count": dict(levels=dict(add=4, sub=4, neg=4, ab=3, abc=2, switched=1),
+                        digests=dict(add="f3b3e08f77a253e83da0283ea8e2e31fe8393a56a040413d09a6999aa6e27260",
+                                     sub="52863a1525eb03225a53e1bc464683c94eaa1e63e30f921fb79632dd228fc559",
+                                     neg="af429c24344abe26797f1ba78c50e29cfe3bf3b1da5659cfd850cdda01a6a650",
+                                     ab="02a76735864062363a80dee09cd04d6c8c8869dbcddbcf0f7155c072afbf72a3",
+                                     abc="1e82365bebac58bff0cd88f503e0ba57b4f8764d53b11843f555ad0f60036392",
+                                     switched="1e11133342e9b9143edc677dbbbe14d90bc43911457153a0c348f4f15d4f4488")),
+}
+BGV_STAGED_DISPATCHES = {"ntt": 31, "mulmod": 75, "addmod": 40, "submod": 16, "intt": 21, "bconv": 13}
+BGV_FUSED_DISPATCHES = {"ntt": 18, "mulmod": 42, "addmod": 26, "submod": 10, "intt": 18, "fusedks": 3,
+                        "fused_moddown": 3}
+# The executor at matmul: executor_pairs(ctx) of a context over full_keyset(p, seed=0)
+# (job 0 is REFERENCE["matmul"]'s (a, a)), then, in the reference package on the CPU,
+#   E.parallel_shallow_mul(p, ks, pairs, E.affiliation_mesh(1))
+# after one ctx.mul(*pairs[0]), which fills its table caches outside the jit trace
+# (a first call inside the trace would cache tracers).  digest(out) of each job,
+# equal to that job's lone ctx.mul in the reference.
+EXECUTOR = dict(
+    preset="matmul", jobs=8, affiliations=8,
+    digests=(
+        "916a0ff591277d18ac29e136e1a9bc6dda301eb8483c05e2011a172e04b70c0d",
+        "9b1a9198971b1922435a3f2bb2edcab8bc1a04d7965143eb57ccf90c473b9758",
+        "4001214a69a5c962883241bd7fc46b34b58ce1ac8c6065faa704863321b05d40",
+        "89b3a73323ab551665ee69d03922ef5e05e146f12a6426b5b392551bf8c03787",
+        "5cb6a1206c54a5c00ced2b0a00768d6276c08e70eff075e3474227e4446c090b",
+        "9becf58f8ac6ce2bf56104e5b46d2389f17deb9ef4bb2addf666dee654eff0b8",
+        "ce80ae4189ec0bace51b7e80186e7a5d4d7cc544466046bef080d64f5433f55c",
+        "fefee7bf62e223d47223a2a00b65047bde09869e563bd620c39a0c0c4a46d22f",
+    ),
 )
 # Which kernel each dispatch op launches.
 KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": "ntt", "intt": "ntt",
@@ -228,6 +291,57 @@ def packed_bootstrap_context(p, keys):
                               eval_mod_degree=degree)
 
 
+def oracle_mul(a: np.ndarray, b: np.ndarray, n: int, t: int) -> np.ndarray:
+    """Negacyclic convolution mod t: the product that X^n + 1 induces on
+    coefficient-packed BGV messages (``tests/test_bgv.py``'s oracle)."""
+    conv = np.convolve(a.astype(np.int64), b.astype(np.int64))
+    res = np.zeros(n, np.int64)
+    res[: min(n, conv.shape[0])] += conv[:n]
+    wrap = conv[n:]
+    res[: wrap.shape[0]] -= wrap
+    return res % t
+
+
+def bgv_messages(p) -> tuple:
+    """Three messages of N integers mod t, from one seeded generator."""
+    rng = np.random.default_rng(0)
+    return tuple(rng.integers(0, p.plain_modulus, size=p.n) for _ in range(3))
+
+
+def bgv_path(ctx, msgs) -> tuple[dict, dict]:
+    """The BGV path of ``BGV`` through a context's public API: encode and
+    encrypt a, b, c; a + b, a − b, −a; a·b and (a·b)·c, each mod-switched
+    after the product; (a·b·c)·a without the switch, then ``ctx.mod_switch``;
+    decrypt and decode each.  Returns ({output: ciphertext}, {output: integers})."""
+    a, b, c = (ctx.encrypt(ctx.encode(z), seed=s) for z, s in zip(msgs, (1, 2, 3)))
+    outs = dict(add=ctx.add(a, b), sub=ctx.sub(a, b), neg=ctx.negate(a))
+    outs["ab"] = ctx.mul(a, b)
+    outs["abc"] = ctx.mul(outs["ab"], c)
+    outs["switched"] = ctx.mod_switch(ctx.mul(outs["abc"], a, rescale_after=False))
+    return outs, {k: ctx.decrypt_decode(v) for k, v in outs.items()}
+
+
+def bgv_oracle(msgs, n: int, t: int) -> dict:
+    """What ``bgv_path`` must decode to, from the plain integers."""
+    za, zb, zc = (np.asarray(z, np.int64) for z in msgs)
+    ab = oracle_mul(za, zb, n, t)
+    abc = oracle_mul(ab, zc, n, t)
+    return dict(add=(za + zb) % t, sub=(za - zb) % t, neg=(-za) % t, ab=ab, abc=abc, switched=oracle_mul(abc, za, n, t))
+
+
+def executor_pairs(ctx) -> list:
+    """``EXECUTOR``'s jobs: job 0 is ``REFERENCE["matmul"]``'s (a, a); job j ≥ 1
+    multiplies encryptions of default_rng(j) and default_rng(100 + j) normals."""
+    slots = ctx.params.slots
+    a = ctx.encrypt(ctx.encode(np.random.default_rng(0).normal(size=slots) * 0.4))
+    pairs = [(a, a)]
+    for j in range(1, EXECUTOR["jobs"]):
+        x = np.random.default_rng(j).normal(size=slots) * 0.4
+        y = np.random.default_rng(100 + j).normal(size=slots) * 0.4
+        pairs.append((ctx.encrypt(ctx.encode(x), seed=j), ctx.encrypt(ctx.encode(y), seed=100 + j)))
+    return pairs
+
+
 def digest(*cts) -> str:
     h = hashlib.sha256()
     for c in cts:
@@ -268,6 +382,26 @@ def device_busy(fn) -> tuple[float, float, dict]:
     return busy_us / 1e3, wall, by_name
 
 
+def kernel_streams(fn, trace_path: pathlib.Path) -> dict:
+    """{CUDA stream: kernels} over one call of ``fn`` after a first call, from
+    the ``args.stream`` of the kernel events of ``torch.profiler``'s Chrome
+    trace, which is written to ``trace_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    streams = {}
+    for e in json.loads(trace_path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel" and "stream" in e.get("args", {}):
+            streams[e["args"]["stream"]] = streams.get(e["args"]["stream"], 0) + 1
+    return streams
+
+
 def rand_residues(shape, primes, gen) -> torch.Tensor:
     q = torch.tensor(primes, dtype=torch.int64, device=DEVICE)[:, None]
     x = torch.randint(0, 1 << 31, shape, generator=gen, device=DEVICE, dtype=torch.int64)
@@ -282,8 +416,10 @@ def main() -> int:
         print("chip_smoke: run it from a checkout that holds src/repro_torch", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import executor as E
     from repro_torch.fhe import keys as K
-    from repro_torch.fhe import linear
+    from repro_torch.fhe import keyswitch, linear
+    from repro_torch.fhe import ops as fhe_ops
     from repro_torch.fhe import params as P
     from repro_torch.fhe import poly, rns
     from repro_torch.fhe.context import ExecPolicy, FheContext
@@ -454,7 +590,8 @@ def main() -> int:
     # (ModUp 58 → 116, ModDown 58 → 58) and at logreg (17 → 51), all at N = 2^16
     boot_p = P.make_params(BOOTSTRAP["n"], BOOTSTRAP["L"], BOOTSTRAP["dnum"], check_security=False)
     for name, moddown in (("lstm", True), ("matmul", False), (MLP["preset"], False),
-                          ("packed_bootstrap", True), ("logreg", False), ("bootstrap ring", True)):
+                          ("packed_bootstrap", True), ("logreg", False), ("bootstrap ring", True),
+                          ("exact_count", True)):
         p = boot_p if name == "bootstrap ring" else P.workload_params(name)
         n, lv = p.n, p.L
         ext = poly.primes_for(p, poly.ext_idx(p, lv))
@@ -521,10 +658,13 @@ def main() -> int:
         _, _, by_name = device_busy(fn)
         print(f"    {label} at {PACKED['preset']} by pass (profiler, ms): "
               + ", ".join(f"{k[:48]} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])))
-    # ModRaise's NTT and EvalMod's products at the top level's 58 limbs
+    # ModRaise's NTT and EvalMod's products and sums at the top level's 58 limbs
     qa, qb = rand_residues((pb_nq, pb.n), pb.q_primes, gen), rand_residues((pb_nq, pb.n), pb.q_primes, gen)
-    check("modops", f"{PACKED['preset']} mul ({pb_nq}, {pb.n})", lambda: mops.pointwise_mulmod(qa, qb, pb.q_primes),
-          lambda: mref.mulmod_ref(qa, qb, pb.q_primes), 3 * pb_nq * pb.n * WORD, pb_nq * pb.n * MULMOD)
+    for op, kfn, pfn, opc in (("mul", mops.pointwise_mulmod, mref.mulmod_ref, MULMOD),
+                              ("add", mops.pointwise_addmod, mref.addmod_ref, ADDMOD),
+                              ("sub", mops.pointwise_submod, mref.submod_ref, ADDMOD)):
+        check("modops", f"{PACKED['preset']} {op} ({pb_nq}, {pb.n})", lambda: kfn(qa, qb, pb.q_primes),
+              lambda: pfn(qa, qb, pb.q_primes), 3 * pb_nq * pb.n * WORD, pb_nq * pb.n * opc)
     for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
         check_ntt(f"{PACKED['preset']} {tag} {tuple(qa.shape)}", kfn, pfn, qa, poly.plan_for(pb, poly.q_idx(pb, pb.L)))
     del d, dig, ksk, pc, qpart, qa, qb
@@ -533,6 +673,32 @@ def main() -> int:
     x = rand_residues((len(boot_ext), boot_p.n), poly.primes_for(boot_p, boot_ext), gen)
     for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
         check_ntt(f"bootstrap ring {tag} {tuple(x.shape)}", kfn, pfn, x, poly.plan_for(boot_p, boot_ext))
+    # the BGV presets of phase 3f.  exact_count's chain (L = 4, dnum = 3, α = 2) is
+    # a shape no case above has: its products, the t-sandwich's product of the 7
+    # extended limbs by a per-limb column, the NTT over them and the key-switch
+    # kernels (its BConvs are in the loop above); psi's chain is lola_mnist_plain's,
+    # whose fused_ks alone had no case
+    ec = P.workload_params("exact_count")
+    ec_nq, ec_ext = ec.L + 1, poly.ext_idx(ec, ec.L)
+    ec_q, ec_m = poly.primes_for(ec, poly.q_idx(ec, ec.L)), len(ec_ext)
+    a, b = rand_residues((ec_nq, ec.n), ec_q, gen), rand_residues((ec_nq, ec.n), ec_q, gen)
+    for op, kfn, pfn, opc in (("mul", mops.pointwise_mulmod, mref.mulmod_ref, MULMOD),
+                              ("add", mops.pointwise_addmod, mref.addmod_ref, ADDMOD),
+                              ("sub", mops.pointwise_submod, mref.submod_ref, ADDMOD)):
+        check("modops", f"exact_count {op} ({ec_nq}, {ec.n})", lambda: kfn(a, b, ec_q), lambda: pfn(a, b, ec_q),
+              3 * ec_nq * ec.n * WORD, ec_nq * ec.n * opc)
+    ec_ext_q = poly.primes_for(ec, ec_ext)
+    x = rand_residues((ec_m, ec.n), ec_ext_q, gen)
+    col = rand_residues((ec_m, 1), ec_ext_q, gen).expand(ec_m, ec.n)
+    check("modops", f"exact_count t-sandwich mul ({ec_m}, {ec.n}) by ({ec_m}, 1)",
+          lambda: mops.pointwise_mulmod(x, col, ec_ext_q), lambda: mref.mulmod_ref(x, col, ec_ext_q),
+          (2 * ec_m * ec.n + ec_m) * WORD, ec_m * ec.n * MULMOD)
+    for tag, kfn, pfn in (("fwd", nops.ntt_fwd, nref.ntt_fwd_ref), ("inv", nops.ntt_inv, nref.ntt_inv_ref)):
+        check_ntt(f"exact_count {tag} {tuple(x.shape)}", kfn, pfn, x, poly.plan_for(ec, ec_ext))
+    check_fused_ks(ec, ec.L, f"exact_count level={ec.L} beta={ec.beta(ec.L)}")
+    check_fused_moddown("exact_count", ec, 2)
+    psi = P.workload_params("psi")
+    check_fused_ks(psi, psi.L, f"psi level={psi.L} beta={psi.beta(psi.L)}")
     if failures:
         print("FAILED kernel checks: " + ", ".join(failures), file=sys.stderr)
         return 1
@@ -809,6 +975,126 @@ def main() -> int:
         print(f"  profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall under the profiler, "
               f"idle share {1 - busy / wall:.3f}")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
+
+    # -- 3f. BGV at psi and exact_count, full width ------------------------------
+    print("BGV at psi and exact_count (keygen; encode, encrypt, add, sub, negate, a·b, (a·b)·c, "
+          "((a·b)·c)·a then mod_switch, decrypt, decode), fused and staged:")
+    bgv_muls = {}
+    for name in ("psi", "exact_count"):
+        p = P.workload_params(name)
+        want = BGV[name]
+        steps = {}
+        ks = timed(steps, "keygen", lambda: K.full_keyset(p, seed=0, device=DEVICE))
+        msgs = bgv_messages(p)
+        oracle = bgv_oracle(msgs, p.n, p.plain_modulus)
+        print(f"  {name}: N = {p.n}, L = {p.L}, dnum = {p.dnum}, t = {p.plain_modulus}")
+        for label, policy, pipeline, want_counts in (
+                (f"bgv {name}", ExecPolicy(), "fused", BGV_FUSED_DISPATCHES),
+                (f"staged bgv {name}", ExecPolicy(backend="staged"), "staged", BGV_STAGED_DISPATCHES)):
+            ctx = FheContext(params=p, keys=ks, policy=policy, device=DEVICE)
+            reset_launches()
+            with dispatch.count_dispatches() as counts:
+                outs, decoded = timed(steps, label, lambda: bgv_path(ctx, msgs))
+            paths[label] = launched = read_launches()
+            again, _ = timed(steps, f"{label} again", lambda: bgv_path(ctx, msgs))
+            digests = {k: digest(v) for k, v in outs.items()}
+            levels = {k: v.level for k, v in outs.items()}
+            exact = {k: bool(np.array_equal(decoded[k], oracle[k])) for k in outs}
+            print(f"  {label}: policy {ctx.policy_key()} pipeline={ctx.pipeline} levels {levels} oracle-exact {exact}")
+            print(f"  {label}: digests " + " ".join(f"{k}={v[:12]}" for k, v in digests.items()))
+            print(f"  {label}: {dispatch.total(counts)} dispatches {dict(counts)} launches {launched}")
+            problems = []
+            if ctx.pipeline != pipeline or ctx.scheme != "bgv":
+                problems.append(f"pipeline {ctx.pipeline}, scheme {ctx.scheme}")
+            if digests != want["digests"] or levels != want["levels"]:
+                problems.append(f"digests {digests} (levels {levels}) != reference {want['digests']}")
+            if any(digest(again[k]) != digests[k] for k in outs):
+                problems.append("a second run gave other bytes")
+            if not all(exact.values()):
+                problems.append(f"decoded integers differ from the negacyclic oracle mod t: {exact}")
+            if dict(counts) != want_counts:
+                problems.append(f"dispatches {dict(counts)} != reference {want_counts}")
+            if launched != launches_of(counts) or min(launched[k] for k in ("modops", "ntt")) < 1:
+                problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
+            if pipeline == "staged" and launched["bconv"] < 1:
+                problems.append(f"the staged run launched no bconv: {launched}")
+            if pipeline == "fused" and min(launched[k] for k in ("fused_ks", "fused_moddown")) < 1:
+                problems.append(f"the fused run launched no key-switch kernel: {launched}")
+            if problems:
+                print(f"FAILED {label}: " + "; ".join(problems), file=sys.stderr)
+                return 1
+            if pipeline == "fused":
+                a, b, _ = (ctx.encrypt(ctx.encode(z), seed=s) for z, s in zip(msgs, (1, 2, 3)))
+                bgv_muls[name] = (ctx, a, b)
+        print(f"  {name}: " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+    for name, (ctx, a, b) in bgv_muls.items():
+        busy, wall, by_name = device_busy(lambda: ctx.mul(a, b))
+        mul_ms = time_ms(lambda: ctx.mul(a, b), iters=10, warmup=2)
+        print(f"  profile BGV ctx.mul at {name}: {mul_ms:.3f} ms a mul (CUDA events, host included); device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall under the profiler, idle share {1 - busy / wall:.3f}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
+
+    # -- 3g. the executor: one shallow job per affiliation, one CUDA stream each --
+    p = P.workload_params(EXECUTOR["preset"])
+    n_jobs, n_aff = EXECUTOR["jobs"], EXECUTOR["affiliations"]
+    print(f"executor: {n_jobs} jobs of ctx.mul at {EXECUTOR['preset']} over {n_aff} affiliations, "
+          "one CUDA stream each:")
+    ks = keysets[EXECUTOR["preset"]]
+    ctx = FheContext(params=p, keys=ks, policy=ExecPolicy(backend="ref"), device=DEVICE)
+    pairs = executor_pairs(ctx)
+    with dispatch.count_dispatches() as one:
+        ctx.mul(*pairs[0])
+    lone = [digest(ctx.mul(*pr)) for pr in pairs]  # each job alone, on the default stream
+    # every table cache cold: the executor builds them on the caller's stream
+    # before the fan-out, so no side stream may build one
+    caches = (nops.kernel_tables, mops._constants, bops._table, keyswitch._limb_column, fhe_ops._rescale_tables)
+    for cache in caches:
+        cache.cache_clear()
+    E._upload_tables(p, p.L, pairs[0][0].c0.device)
+    cold_misses = [c.cache_info().misses for c in caches]
+    streams = E.affiliation_streams(n_aff, DEVICE)
+    run8 = lambda: E.parallel_shallow_mul(p, ks, pairs, streams, DEVICE)
+    one_stream = E.affiliation_streams(1, DEVICE)
+    run1 = lambda: E.parallel_shallow_mul(p, ks, pairs, one_stream, DEVICE)
+    steps = {}
+    reset_launches()
+    with dispatch.count_dispatches() as counts:
+        outs = timed(steps, f"{n_jobs} jobs on {n_aff} streams (first)", run8)
+    paths[f"executor {n_jobs} jobs"] = launched = read_launches()
+    table_misses = [c.cache_info().misses - m for c, m in zip(caches, cold_misses)]
+    for i, (label, fn) in enumerate(((f"{n_aff} streams", run8), ("1 stream", run1), ("1 stream", run1),
+                                     (f"{n_aff} streams", run8))):
+        timed(steps, f"{n_jobs} jobs on {label} #{i + 1}", fn)  # in turns
+    digests = [digest(o) for o in outs]
+    by_stream = kernel_streams(run8, ROOT / "build" / "executor_trace.json")
+    print("  " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()))
+    print(f"  levels {sorted({o.level for o in outs})} digests " + " ".join(d[:12] for d in digests))
+    print(f"  dispatches {dict(counts)} (one staged ctx.mul: {dict(one)}) launches {launched}")
+    print(f"  kernels by CUDA stream (profiler trace): {dict(sorted(by_stream.items()))}; "
+          f"table builds during the fan-out: {table_misses}")
+    problems = []
+    if digests != list(EXECUTOR["digests"]) or digests[0] != REFERENCE["matmul"]["digest"]:
+        problems.append(f"digests {digests} != reference {list(EXECUTOR['digests'])}")
+    if digests != lone:
+        problems.append(f"digests {digests} != the lone ctx.muls' {lone}")
+    if dict(one) != STAGED_MUL_DISPATCHES["matmul"] or dict(counts) != {k: n_jobs * v for k, v in one.items()}:
+        problems.append(f"dispatches {dict(counts)} != {n_jobs} × {dict(one)}")
+    if launched != launches_of(counts) or min(launched[k] for k in ("modops", "ntt", "bconv")) < 1:
+        problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
+    if any(table_misses):
+        problems.append(f"tables were built during the fan-out: {table_misses}")
+    if len(by_stream) < n_aff:
+        problems.append(f"kernels ran on {len(by_stream)} CUDA streams, not ≥ {n_aff}: {by_stream}")
+    if problems:
+        print("FAILED executor: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    for label, fn in ((f"{n_jobs} jobs on {n_aff} streams", run8), (f"{n_jobs} jobs on 1 stream", run1)):
+        busy, wall, by_name = device_busy(fn)
+        print(f"  profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall under the profiler, "
+              f"idle share {1 - busy / wall:.3f}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
 
     # -- 4. report ---------------------------------------------------------------

@@ -1,18 +1,19 @@
-"""CKKS FHE scheme in PyTorch, with CUDA kernels on the hot path.
+"""The CKKS and BGV FHE schemes in PyTorch, with CUDA kernels on the hot path.
 
 Residues are int32 tensors (every prime is < 2^31); the plain versions of the
 kernels compute in int64 and the kernels read the buffers as uint32_t.
 
-Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``),
-and the modules ``linear`` (BSGS planning), ``polyeval`` (Chebyshev
-evaluation) and ``bootstrap`` (``build_context``), exported lazily so that
-``repro_torch.fhe.params`` and friends stay cheap.
+Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``;
+params with ``plain_modulus`` set make a BGV context), and the modules
+``linear`` (BSGS planning), ``polyeval`` (Chebyshev evaluation),
+``bootstrap`` (``build_context``) and ``bgv`` (its ciphertext types), exported
+lazily so that ``repro_torch.fhe.params`` and friends stay cheap.
 """
 
 import importlib
 
 _CONTEXT_EXPORTS = ("FheContext", "ExecPolicy")
-_LAZY_MODULES = ("linear", "polyeval", "bootstrap")
+_LAZY_MODULES = ("linear", "polyeval", "bootstrap", "bgv")
 
 
 def __getattr__(name):

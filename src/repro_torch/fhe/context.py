@@ -24,6 +24,10 @@ Quick use::
     mv = ctx.apply_bsgs(ct, plan)                 # needs keys for plan.rotations()
     y = ctx.eval_poly(ct, coeffs)                 # Σ c_i·T_i(x), Chebyshev basis
 
+    sp = P.workload_params("psi")                 # plain_modulus set: a BGV context
+    bgv = FheContext(params=sp, keys=K.full_keyset(sp, seed=0))
+    w = bgv.decrypt_decode(bgv.mul(bgv.encrypt(bgv.encode(u)), bgv.encrypt(bgv.encode(v))))  # u ⊛ v mod t
+
     bp = P.make_params(1 << 8, 18, 1, check_security=False)  # a chain deep enough to bootstrap
     bctx = bootstrap.build_context(bp, seed=0, h=32)          # BSGS plans, sine fit, Galois keys
     fresh = FheContext(params=bp, keys=bctx.keys).bootstrap(bctx, exhausted, post_scale=64)
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 
+from . import bgv as _bgv
 from . import bootstrap as _bootstrap
 from . import keyswitch, linear, ops, polyeval
 from .keys import KeySet, SwitchingKey
@@ -83,6 +88,10 @@ class ExecPolicy:
     def replace(self, **changes) -> "ExecPolicy":
         return dataclasses.replace(self, **changes)
 
+    def for_scheme(self, scheme: str) -> "ExecPolicy":
+        """This policy re-tagged for ``scheme`` (itself when it already matches)."""
+        return self if scheme == self.scheme else dataclasses.replace(self, scheme=scheme)
+
     # -- resolved views -----------------------------------------------------
     # The reference also resolves ``stage`` and ``plan_fused`` here, on JAX's
     # default backend.  This package resolves "auto" on a device, which a
@@ -119,15 +128,14 @@ class FheContext:
     device: torch.device | str = "cuda"
 
     def __post_init__(self):
-        if self.params.scheme != "ckks":
-            raise NotImplementedError("BGV is not ported yet (fhe/bgv.py, ROADMAP Queue 1)")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FheContext on device 'cuda' needs a CUDA card; pass device='cpu' for the CPU")
         if self.keys is not None and self.keys.device.type != dev.type:
             raise ValueError(f"keys live on {self.keys.device}, the context on {dev}")
         object.__setattr__(self, "device", dev)
-        object.__setattr__(self, "policy", self.policy.replace(scheme=self.params.scheme))
+        # the scheme is ground truth on the params (plain_modulus set ⇔ BGV)
+        object.__setattr__(self, "policy", self.policy.for_scheme(self.params.scheme))
 
     def with_policy(self, policy: ExecPolicy | None = None, **changes) -> "FheContext":
         """A context with an overridden policy (same params/keys/device)."""
@@ -175,6 +183,8 @@ class FheContext:
 
     @_hooked
     def encode(self, z, level: int | None = None, scale: float | None = None):
+        if self.scheme == "bgv":
+            return _bgv._encode(self, z, level)
         return ops._encode(self, z, level, scale)
 
     @_hooked
@@ -183,32 +193,47 @@ class FheContext:
 
     @_hooked
     def decode(self, pt):
+        if self.scheme == "bgv":
+            return _bgv._decode(self, pt)
         return ops._decode(self, pt)
 
     @_hooked
     def encrypt(self, pt, seed: int = 17):
+        if self.scheme == "bgv":
+            return _bgv._encrypt(self, self.require_keys().pk, pt, seed)
         return ops._encrypt(self, self.require_keys().pk, pt, seed)
 
     @_hooked
     def decrypt(self, ct):
+        if self.scheme == "bgv":
+            return _bgv._decrypt(self, self.require_keys().sk, ct)
         return ops._decrypt(self, self.require_keys().sk, ct)
 
     @_hooked
     def decrypt_decode(self, ct):
-        return ops._decode(self, ops._decrypt(self, self.require_keys().sk, ct))
+        sk = self.require_keys().sk
+        if self.scheme == "bgv":
+            return _bgv._decode(self, _bgv._decrypt(self, sk, ct))
+        return ops._decode(self, ops._decrypt(self, sk, ct))
 
     # -- additive ops -------------------------------------------------------
 
     @_hooked
     def add(self, a, b):
+        if self.scheme == "bgv":
+            return _bgv._add(self, a, b)
         return ops._add(self, a, b)
 
     @_hooked
     def sub(self, a, b):
+        if self.scheme == "bgv":
+            return _bgv._sub(self, a, b)
         return ops._sub(self, a, b)
 
     @_hooked
     def negate(self, a):
+        if self.scheme == "bgv":
+            return _bgv._negate(self, a)
         return ops._negate(self, a)
 
     @_hooked
@@ -238,18 +263,34 @@ class FheContext:
 
     @_hooked
     def mul(self, a, b, rlk: SwitchingKey | None = None, rescale_after: bool = True):
-        """Ciphertext-ciphertext multiplication with relinearisation."""
+        """Ciphertext-ciphertext multiplication with relinearisation.  Under a
+        BGV context, ``rescale_after`` means "modulus-switch one level down
+        after the product" (the BGV analogue of the CKKS rescale)."""
         rlk = rlk if rlk is not None else self.require_keys().rlk
+        if self.scheme == "bgv":
+            return _bgv._mul(self, a, b, rlk, mod_switch_after=rescale_after)
         return ops._mul(self, a, b, rlk, rescale_after)
 
     @_hooked
     def square(self, a, rlk: SwitchingKey | None = None, rescale_after: bool = True):
         rlk = rlk if rlk is not None else self.require_keys().rlk
+        if self.scheme == "bgv":
+            return _bgv._mul(self, a, a, rlk, mod_switch_after=rescale_after)
         return ops._mul(self, a, a, rlk, rescale_after)
 
     @_hooked
     def rescale(self, ct):
+        if self.scheme == "bgv":
+            raise ValueError("BGV has no rescale; use ctx.mod_switch(ct) instead")
         return ops._rescale(self, ct)
+
+    @_hooked
+    def mod_switch(self, ct):
+        """BGV modulus switch: drop the last chain prime, preserving the
+        message mod t exactly (q_ℓ ≡ 1 mod t on the shared chain)."""
+        if self.scheme != "bgv":
+            raise ValueError("mod_switch is a BGV op; use ctx.rescale for CKKS")
+        return _bgv._mod_switch(self, ct)
 
     # -- rotations / conjugation --------------------------------------------
 

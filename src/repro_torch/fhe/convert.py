@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import poly
+from .bgv import BgvCiphertext
 from .keys import KeySet, PublicKey, SecretKey, SwitchingKey
 from .ops import Ciphertext
 from .params import CkksParams
@@ -39,7 +40,16 @@ def keyset_from_arrays(params: CkksParams, arrays: dict, device="cuda") -> KeySe
     )
 
 
-def ciphertext_from_arrays(c0, c1, level: int, scale: float, device="cuda") -> Ciphertext:
+def _limbs(c0, c1, level: int, device):
     if np.shape(c0) != np.shape(c1) or np.shape(c0)[0] != level + 1:
         raise ValueError(f"c0 {np.shape(c0)} and c1 {np.shape(c1)} must both hold level+1 = {level + 1} limbs")
-    return Ciphertext(c0=poly.residues(c0, device), c1=poly.residues(c1, device), level=level, scale=scale)
+    return poly.residues(c0, device), poly.residues(c1, device)
+
+
+def ciphertext_from_arrays(c0, c1, level: int, scale: float, device="cuda") -> Ciphertext:
+    return Ciphertext(*_limbs(c0, c1, level, device), level=level, scale=scale)
+
+
+def bgv_ciphertext_from_arrays(c0, c1, level: int, device="cuda") -> BgvCiphertext:
+    """A reference ``BgvCiphertext``'s limbs (host arrays) as the port's."""
+    return BgvCiphertext(*_limbs(c0, c1, level, device), level=level)

@@ -263,8 +263,7 @@ def test_context_device_rules(pair, monkeypatch):
         ctx.with_policy(T_Policy(), backend="ref")
     with pytest.raises(ValueError, match="KeySet"):
         T_Ctx(params=tp, device=CPU).encrypt(ctx.encode(np.zeros(4)))
-    with pytest.raises(NotImplementedError, match="fhe/bgv.py"):
-        T_Ctx(params=T_P.workload_params("psi"), device=CPU)
+    assert T_Ctx(params=T_P.workload_params("psi"), device=CPU).policy_key()[0] == "bgv"  # BGV is ported
     for name in ("bootstrap", "eval_poly"):  # polyeval and bootstrap are ported
         assert hasattr(ctx, name)
     for name in ("rotate", "rotate_hoisted_group", "conjugate", "apply_bsgs", "real_part"):
@@ -282,10 +281,16 @@ def test_hook_observes_every_dispatch(pair):
     assert len(seen) == T_dispatch.total(c) and set(seen) == set(c)
 
 
-def test_bgv_params_are_not_ported():
+def test_bgv_params_build_a_bgv_context_with_its_scheme_guards():
     assert T_ops.Ciphertext.__dataclass_fields__.keys() == {"c0", "c1", "level", "scale"}
-    with pytest.raises(NotImplementedError):
-        T_Ctx(params=T_P.make_params(1 << 9, 2, 1, check_security=False, plain_modulus=2), device=CPU)
+    p = T_P.make_params(1 << 9, 2, 1, check_security=False, plain_modulus=2)
+    ctx = T_Ctx(params=p, keys=T_K.full_keyset(p, seed=0, device=CPU), device=CPU)
+    assert ctx.scheme == "bgv" and ctx.policy_key() == ("bgv", "auto", "auto", "standard")
+    ct = ctx.encrypt(ctx.encode(np.arange(5) % 2))
+    assert ct.__dataclass_fields__.keys() == {"c0", "c1", "level"}
+    with pytest.raises(ValueError, match="no rescale"):
+        ctx.rescale(ct)
+    assert ctx.mod_switch(ct).level == ct.level - 1
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 Every test needs a CUDA card, ``nvcc`` and sm_90a (an H100): each skips inside
 the ``card`` fixture where there is none.  The last tests run the rotation
-slice and the n = 2^8 bootstrap end to end on the card against the
-reference digests of ``chip_smoke.py``.  Run them on the card with
+slice, the n = 2^8 bootstrap, BGV at ``psi`` and the multi-job executor end
+to end on the card against the reference digests of ``chip_smoke.py``.  Run
+them on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
 
@@ -266,3 +267,47 @@ def test_bootstrap_on_the_card_equals_the_cpu(card):
     for got in outs[:2]:
         assert torch.equal(got.c0.cpu(), outs[2].c0) and torch.equal(got.c1.cpu(), outs[2].c1)
     assert cs.digest(outs[0]) == cs.BOOTSTRAP["digest"]
+
+
+def test_bgv_on_the_card_equals_the_cpu(card):
+    """The BGV path of chip_smoke.py at psi: fused and staged on the card, the
+    plain versions on the CPU, the reference's digests and the oracle."""
+    cs = _chip_smoke()
+    p = P.workload_params("psi")
+    msgs = cs.bgv_messages(p)
+    oracle = cs.bgv_oracle(msgs, p.n, p.plain_modulus)
+    digests = []
+    for device, backend in ((card, "auto"), (card, "staged"), ("cpu", "ref")):
+        ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, device=device), policy=ExecPolicy(backend=backend),
+                         device=device)
+        outs, decoded = cs.bgv_path(ctx, msgs)
+        assert all(np.array_equal(decoded[k], oracle[k]) for k in outs)
+        digests.append({k: cs.digest(v) for k, v in outs.items()})
+    assert digests[0] == digests[1] == digests[2] == cs.BGV["psi"]["digests"]
+
+
+def test_executor_on_four_streams_equals_four_ctx_muls(card):
+    """Four jobs at matmul over four CUDA streams, from cold table caches: each
+    output equals its lone ctx.mul, and the fan-out builds no table."""
+    from repro_torch.core import executor as E
+    from repro_torch.fhe import keyswitch, ops
+
+    cs = _chip_smoke()
+    p = P.workload_params(cs.EXECUTOR["preset"])
+    ks = K.full_keyset(p, seed=0, device=card)
+    ctx = FheContext(params=p, keys=ks, policy=ExecPolicy(backend="ref"), device=card)
+    pairs = cs.executor_pairs(ctx)[:4]
+    alone = [ctx.mul(a, b) for a, b in pairs]
+    caches = (nops.kernel_tables, mops._constants, bops._table, keyswitch._limb_column, ops._rescale_tables)
+    for c in caches:
+        c.cache_clear()
+    E._upload_tables(p, p.L, pairs[0][0].c0.device)
+    misses = [c.cache_info().misses for c in caches]
+    streams = E.affiliation_streams(4, card)
+    assert len({s.cuda_stream for s in streams} | {torch.cuda.current_stream().cuda_stream}) == 5
+    outs = E.parallel_shallow_mul(p, ks, pairs, streams, card)
+    assert [c.cache_info().misses for c in caches] == misses
+    for got, want in zip(outs, alone):
+        assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1) and got.scale == want.scale
+    assert cs.digest(outs[0]) == cs.REFERENCE["matmul"]["digest"]
+    assert [cs.digest(o) for o in outs] == list(cs.EXECUTOR["digests"][:4])
