@@ -56,6 +56,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            job against its lone ``ctx.mul`` and the reference's digest, the
            kernels of the profiler's trace on ≥ 8 distinct streams, and the
            host time of the 8 jobs on 8 streams against 1 stream;
+       3h. the planner (``repro_torch.core.planner``) against the instruction
+           traces of ops whose kernels run on the card, under the fused,
+           staged and "auto" pipelines: ``ctx.mul`` at ``lstm``'s top level and
+           at level 9 (the ragged second digit), ``ctx.rotate``, the hoisted
+           group of 4, the MLP's first ``apply_bsgs`` hoisted and not, BGV
+           ``ctx.mul`` at ``psi`` and ``ctx.mod_switch`` at ``exact_count``;
+           a ``ctx.mul`` at ``lstm`` under ``ExecPolicy.traced``, its 19
+           slices against the dispatches, the launches and the reference's
+           slice names; and the scheduling layer on the card's host (every
+           preset planned and priced, the obs smoke fleet traced and not, five
+           serving scenarios), each against the reference's SHA-256 in
+           ``SCHEDULING``, with its host time; the trace goes to
+           ``build/obs_trace.json``, the history rows to ``build/obs_history.json``;
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -194,6 +207,26 @@ EXECUTOR = dict(
         "ce80ae4189ec0bace51b7e80186e7a5d4d7cc544466046bef080d64f5433f55c",
         "fefee7bf62e223d47223a2a00b65047bde09869e563bd620c39a0c0c4a46d22f",
     ),
+)
+# Phase 3h, the traced multiply: ctx.with_policy(ctx.policy.traced(Tracer())).mul(a, a)
+# at lstm under backend="fused" in the reference package on the CPU (the keys and
+# a of REFERENCE["lstm"]); names_sha256 is the SHA-256 of its slice names joined
+# by "\n", one slice per kernel dispatch, in dispatch order.
+TRACED_MUL = dict(preset="lstm", backend="fused", slices=19,
+                  names_sha256="f00c2a8610c354dc8b5057c5616e48ab190c4ff9b4fe4fae11cba1a60f3f2fee")
+# Phase 3h, the scheduling layer: SHA-256 of the obs smoke scenario's Chrome
+# export (dumps_chrome_trace of obs_smoke_fleet), of json.dumps(summary,
+# sort_keys=True) of each of SERVING_SCENARIOS, and of plan_and_price_blob
+# over every preset, from the reference package on the CPU (the same builders,
+# given the reference's modules).
+SCHEDULING = dict(
+    obs_trace="69339530608fc73f4c6a2a1cfee863127cb73a710a87caaf6cec3cedea7d5ee1",
+    summaries=dict(single="506a5c2d919a0aa70bceb7a0953ac45d0d4b083cc82ac352cc2c4794621a40ca",
+                   hetero="5465ebd0cf15202eb9d56672b1cd53051f6915e20d17e447949100ee468132ff",
+                   overload="a64b333a95b8cb7df084724de647402d9e90bc079987e17601e565fb8da47ee2",
+                   diurnal="613ba20e8dc4b294f398dfb820f55625c1381b4bff0d8bfd86bbec4f90b42e32",
+                   mixed_schemes="966c990ea3c35608cae00ab444edee5743d696473e60ddbc402207bd8bdd078e"),
+    plan_and_price="e5308def188f9efa297a7a7303dfd8125bd3096986625dd188752251200a47e6",
 )
 # Which kernel each dispatch op launches.
 KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": "ntt", "intt": "ntt",
@@ -400,6 +433,303 @@ def kernel_streams(fn, trace_path: pathlib.Path) -> dict:
         if e.get("cat") == "kernel" and "stream" in e.get("args", {}):
             streams[e["args"]["stream"]] = streams.get(e["args"]["stream"], 0) + 1
     return streams
+
+
+def sig(instrs) -> dict:
+    """Multiset of (op, n, limbs) of an instruction stream (meta ignored), as the
+    reference's planner-parity tests compare them."""
+    out = {}
+    for i in instrs:
+        out[(i.op, i.n, i.limbs)] = out.get((i.op, i.n, i.limbs), 0) + 1
+    return out
+
+
+def planner_cases(PL, lstm, mlp, psi, exact, levels) -> list:
+    """Phase 3h's ops against the planner, as (label, thunk, planner stream).
+
+    ``lstm`` = (ctx, ct) with Galois keys for 1..4, ``mlp`` = (ctx, ct, plan),
+    ``psi`` = (BGV ctx, a, b), ``exact`` = (BGV ctx, a); ``levels`` are the
+    levels of the CKKS multiply.  Each op runs under backend "fused", "staged"
+    and "auto"; "auto" must give the fused stream on a CUDA device and the
+    staged one on the CPU."""
+    cases = []
+    for backend in ("fused", "staged", "auto"):
+        fused = backend == "fused" or (backend == "auto" and lstm[0].device.type == "cuda")
+        ctx, ct = lstm
+        c = ctx.with_policy(backend=backend)
+        pp = PL.PlanParams.of(ctx.params)
+        for level in levels:
+            x = c.level_drop(ct, level)
+            cases.append((f"{backend} ctx.mul level {level}", lambda c=c, x=x: c.mul(x, x),
+                          PL.hmul(pp, level, fused=fused)))
+        cases.append((f"{backend} ctx.rotate 1", lambda c=c, ct=ct: c.rotate(ct, 1),
+                      PL.rotate(pp, ct.level, fused=fused)))
+        cases.append((f"{backend} hoisted group of 4", lambda c=c, ct=ct: c.rotate_hoisted_group(ct, (1, 2, 3, 4)),
+                      PL.hoisted_rotations(pp, ct.level, 4, fused=fused)))
+        ctx, ct, plan = mlp
+        pp = PL.PlanParams.of(ctx.params)
+        for hoisting in ("always", "never"):
+            c = ctx.with_policy(backend=backend, hoisting=hoisting)
+            cases.append((f"{backend} apply_bsgs hoisting={hoisting}",
+                          lambda c=c, ct=ct, plan=plan: c.apply_bsgs(ct, plan),
+                          PL.bsgs_matvec(pp, ct.level, len(plan.diags), plan.n1, mode="exec",
+                                         hoist=hoisting == "always", fused=fused)))
+        ctx, a, b = psi
+        c = ctx.with_policy(backend=backend)
+        cases.append((f"{backend} BGV ctx.mul", lambda c=c, a=a, b=b: c.mul(a, b),
+                      PL.bgv_hmul(PL.PlanParams.of(ctx.params), a.level, mod_switch_after=True, fused=fused)))
+        ctx, a = exact
+        c = ctx.with_policy(backend=backend)
+        cases.append((f"{backend} BGV ctx.mod_switch", lambda c=c, a=a: c.mod_switch(a),
+                      PL.bgv_mod_switch(PL.PlanParams.of(ctx.params), a.level)))
+    return cases
+
+
+def traced_mul(ctx, x, Tracer) -> tuple:
+    """ctx.mul(x, x) under ``ctx.policy.traced(tracer)``: (output, tracer, slice names)."""
+    tracer = Tracer()
+    out = ctx.with_policy(ctx.policy.traced(tracer)).mul(x, x)
+    return out, tracer, [e["name"] for e in tracer.events]
+
+
+def names_sha256(names) -> str:
+    return hashlib.sha256("\n".join(names).encode()).hexdigest()
+
+
+# The scheduling layer's scenarios.  ``pkg`` is a namespace of one package's
+# modules (serve, H = core.hardware, J = core.jobs, PL = core.planner,
+# S = core.simulator, P = fhe.params), so that the same builders run the port
+# here and the reference where the digests of SCHEDULING are computed.
+
+OBS_SMOKE_SEED = 20260809
+
+
+def obs_smoke_jobs(pkg, seed: int = OBS_SMOKE_SEED, n: int = 48, deep_frac: float = 0.3) -> list:
+    """tools/obs_smoke.py's 48 jobs: shallow presets and lstm, three tenants."""
+    import random
+
+    rng = random.Random(seed)
+    jobs, t = [], 0
+    for i in range(n):
+        t += rng.randint(1_000, 30_000)
+        wl = "lstm" if rng.random() < deep_frac else rng.choice(("matmul", "lola_mnist_plain", "dblookup"))
+        jobs.append(pkg.J.make_job(wl, priority=rng.randint(0, 2), arrival_cycle=t, job_id=i, tenant_id=i % 3))
+    return jobs
+
+
+def obs_smoke_fleet(pkg, tracer=None):
+    """tools/obs_smoke.py's fleet: 4 FLASH-FHE chips under jsq with gangs of 2, a
+    crash of chip 1, a straggler window on chip 0, two flaky failures on chip 2,
+    and the default retry policy."""
+    FP = pkg.serve.faults.FaultPlan
+    faults = (FP.single_crash(chip=1, at=2.0e5, down=1.0e6)
+              .merged(FP.straggler(chip=0, at=1.0e5, span=8.0e5, factor=2.0))
+              .merged(FP.flaky(chip=2, times=(3.0e5, 6.0e5))))
+    return pkg.serve.serve_cluster(obs_smoke_jobs(pkg), pkg.H.FLASH_FHE, n_chips=4, router="jsq", seed=3,
+                                   gang_max_chips=2, faults=faults, retry=pkg.serve.faults.RetryPolicy(),
+                                   tracer=tracer, validate=True)
+
+
+MIXED_SCHEMES = {"lola_mnist_plain": 0.25, "matmul": 0.15, "psi": 0.25, "exact_count": 0.2, "lstm": 0.15}
+
+
+def _single(pkg):
+    """One FLASH-FHE chip, 120 Poisson arrivals of the mixed CKKS mix."""
+    cfg = pkg.serve.traffic.PoissonConfig(rate_per_mcycle=20.0, n_jobs=120, seed=3)
+    res = pkg.serve.serve(pkg.serve.traffic.poisson_jobs(cfg), pkg.H.FLASH_FHE)
+    return pkg.serve.summarize(res), res
+
+
+def _hetero(pkg):
+    """The README's heterogeneous fleet under the hetero router, gangs of 2."""
+    cfg = pkg.serve.traffic.PoissonConfig(rate_per_mcycle=20.0, n_jobs=120, seed=3)
+    H = pkg.H
+    res = pkg.serve.serve_cluster(pkg.serve.traffic.poisson_jobs(cfg),
+                                  chips=[H.FLASH_FHE, H.FLASH_FHE, H.CRATERLAKE, H.F1PLUS],
+                                  router="hetero", gang_max_chips=2)
+    return pkg.serve.metrics.summarize_cluster(res), res
+
+
+def _overload(pkg):
+    """3× overload of two chips, three tenants, admission at the door and a queue timeout."""
+    cfg = pkg.serve.traffic.PoissonConfig(rate_per_mcycle=60.0, n_jobs=150, seed=5, priority_mix={0: 0.7, 2: 0.3})
+    jobs = [pkg.J.make_job(j.workload, priority=j.priority, arrival_cycle=j.arrival_cycle, job_id=j.job_id,
+                           tenant_id=j.job_id % 3) for j in pkg.serve.traffic.poisson_jobs(cfg)]
+    adm = pkg.serve.AdmissionConfig(max_wait_cycles=4e5, tenant_rate_per_mcycle=15.0, tenant_burst=4.0,
+                                    shed_after_cycles=1.5e6)
+    res = pkg.serve.serve_cluster(jobs, pkg.H.FLASH_FHE, n_chips=2, router="po2", seed=7, admission=adm)
+    return pkg.serve.metrics.summarize_cluster(res), res
+
+
+def _diurnal(pkg):
+    """Two simulated days of diurnal traffic on two chips."""
+    cfg = pkg.serve.DiurnalConfig(peak_rate_per_mcycle=10.0, period_mcycles=5.0, n_periods=2.0, trough_frac=0.5,
+                                  seed=9)
+    res = pkg.serve.serve_cluster(pkg.serve.diurnal_jobs(cfg), pkg.H.FLASH_FHE, n_chips=2, router="jsq")
+    return pkg.serve.metrics.summarize_cluster(res), res
+
+
+def _mixed_schemes(pkg):
+    """CKKS and BGV jobs in one stream on two chips under the affinity router."""
+    cfg = pkg.serve.traffic.PoissonConfig(rate_per_mcycle=15.0, n_jobs=100, mix=MIXED_SCHEMES, seed=11)
+    res = pkg.serve.serve_cluster(pkg.serve.traffic.poisson_jobs(cfg), pkg.H.FLASH_FHE, n_chips=2,
+                                  router="affinity")
+    return pkg.serve.metrics.summarize_cluster(res), res
+
+
+SERVING_SCENARIOS = {"single": _single, "hetero": _hetero, "overload": _overload, "diurnal": _diurnal,
+                     "mixed_schemes": _mixed_schemes}
+
+
+def summary_sha256(summary: dict) -> str:
+    return hashlib.sha256(json.dumps(summary, sort_keys=True).encode()).hexdigest()
+
+
+def plan_and_price(pkg, name: str):
+    """``name``'s hw-mode stream under the default policy, priced on one
+    FLASH-FHE chip at the lanes its kind is granted (a deep job: every
+    bootstrappable cluster; a shallow one: one affiliation)."""
+    stream = pkg.PL.workload_stream(name, pkg.P.workload_params(name), mode="hw")
+    lanes = pkg.S.lanes_deep if pkg.P.workload_kind(name) == "deep" else pkg.S.lanes_shallow
+    return pkg.S.simulate_stream(stream, pkg.H.FLASH_FHE, lanes(pkg.H.FLASH_FHE))
+
+
+def plan_and_price_blob(sims: dict) -> str:
+    """{preset: SimResult} as sorted JSON of every field."""
+    return json.dumps({name: [s.cycles, s.hbm_bytes, s.unit_cycles, s.cache_hit_ratio, s.instr_count, s.time_s]
+                       for name, s in sims.items()}, sort_keys=True)
+
+
+def phase_3h(kernels, paths, launches_of, lstm, mlp, psi, exact, mul, smi) -> int:
+    """Phase 3h: the planner against the traces of ops whose kernels run on the
+    card, a traced multiply, and the scheduling layer on the card's host.
+
+    ``kernels`` and ``paths`` are ``main``'s launch counters and per-path
+    launch table, ``launches_of`` maps dispatch counts to kernel launches;
+    ``lstm``, ``mlp``, ``psi`` and ``exact`` are ``planner_cases``'s contexts,
+    ``mul`` = (ctx, ct) at ``TRACED_MUL``'s preset, ``smi`` the card's name and
+    power limit.  Returns 0, or 1 after printing what failed."""
+    import types
+
+    from repro_torch import obs
+    from repro_torch import serve as serve_pkg
+    from repro_torch.core import hardware, jobs, planner, simulator
+    from repro_torch.fhe import params as P
+    from repro_torch.fhe import trace
+    from repro_torch.kernels import dispatch
+
+    def reset_launches():
+        for v in kernels.values():
+            v["k"].launches = 0
+
+    def read_launches() -> dict:
+        return {k: v["k"].launches for k, v in kernels.items()}
+
+    print("planner against the instruction traces of the ops on the card (fused, staged, auto):")
+    cases = planner_cases(planner, lstm, mlp, psi, exact, levels=(lstm[0].params.L, 9))
+    problems = []
+    for label, fn, want in cases:
+        reset_launches()
+        with dispatch.count_dispatches() as counts, trace.capture_trace() as got:
+            fn()
+        torch.cuda.synchronize()
+        paths[f"3h {label}"] = launched = read_launches()
+        match = sig(got) == sig(want)
+        print(f"  {label}: {len(got)} records, planner {len(want)}, match={match}, "
+              f"{dispatch.total(counts)} dispatches, launches {sum(launched.values())}")
+        if not match:
+            problems.append(f"{label}: trace {sig(got)} != planner {sig(want)}")
+        if launched != launches_of(counts) or dispatch.total(counts) < 1:
+            problems.append(f"{label}: launches {launched} != dispatches {launches_of(counts)}")
+    h_launched = {k: sum(paths[f"3h {label}"][k] for label, _, _ in cases) for k in kernels}
+    print(f"  kernel launches over the {len(cases)} ops: {h_launched}")
+    if min(h_launched[k] for k in ("modops", "ntt", "fused_ks", "fused_moddown", "bconv", "hoist_modup",
+                                    "hoist_mac")) < 1:
+        problems.append(f"a kernel of phase 3h was not launched: {h_launched}")
+    if problems:
+        print("FAILED planner parity: " + "; ".join(problems), file=sys.stderr)
+        return 1
+
+    print(f"traced ctx.mul at {TRACED_MUL['preset']} ({TRACED_MUL['backend']}):")
+    tctx, tx = mul
+    tctx = tctx.with_policy(backend=TRACED_MUL["backend"])
+    reset_launches()
+    with dispatch.count_dispatches() as counts:
+        out, tracer, names = traced_mul(tctx, tx, obs.Tracer)
+    torch.cuda.synchronize()
+    paths["3h traced mul"] = launched = read_launches()
+    trace_problems = obs.validate_chrome_trace(obs.to_chrome_trace(tracer))
+    nsha = names_sha256(names)
+    print(f"  {len(names)} slices, {dispatch.total(counts)} dispatches, {sum(launched.values())} launches, "
+          f"names sha256 {nsha[:16]} (reference {TRACED_MUL['names_sha256'][:16]}), "
+          f"export problems {trace_problems}, digest {digest(out)[:16]}")
+    problems = []
+    if not (len(names) == TRACED_MUL["slices"] == dispatch.total(counts) == sum(launched.values())
+            == sum(FUSED_MUL_DISPATCHES.values())):
+        problems.append(f"{len(names)} slices, {dispatch.total(counts)} dispatches, {launched} launches")
+    if nsha != TRACED_MUL["names_sha256"] or trace_problems:
+        problems.append(f"names {names} (sha256 {nsha}), export problems {trace_problems}")
+    if launched != launches_of(counts) or digest(out) != REFERENCE[TRACED_MUL["preset"]]["digest"]:
+        problems.append(f"launches {launched}, digest {digest(out)}")
+    if problems:
+        print("FAILED traced multiply: " + "; ".join(problems), file=sys.stderr)
+        return 1
+
+    print("scheduling layer on the card's host (planner, simulator, serving, tracing):")
+    pkg = types.SimpleNamespace(serve=serve_pkg, H=hardware, J=jobs, PL=planner, S=simulator, P=P)
+    host_ms, sims = {}, {}
+    for name in planner.available_workloads():
+        t = time.perf_counter()
+        sims[name] = plan_and_price(pkg, name)
+        host_ms[f"plan+price {name}"] = (time.perf_counter() - t) * 1e3
+    problems = []
+    sha = hashlib.sha256(plan_and_price_blob(sims).encode()).hexdigest()
+    if sha != SCHEDULING["plan_and_price"]:
+        problems.append(f"plan_and_price sha256 {sha} != reference {SCHEDULING['plan_and_price']}")
+    t = time.perf_counter()
+    tracer = obs.Tracer()
+    fleet = obs_smoke_fleet(pkg, tracer)
+    host_ms["obs smoke fleet (traced)"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    bare = obs_smoke_fleet(pkg)
+    host_ms["obs smoke fleet (untraced)"] = (time.perf_counter() - t) * 1e3
+    blob = obs.dumps_chrome_trace(tracer)
+    trace_out = ROOT / "build" / "obs_trace.json"
+    trace_out.parent.mkdir(parents=True, exist_ok=True)
+    trace_out.write_text(blob)
+    sha = hashlib.sha256(blob.encode()).hexdigest()
+    if sha != SCHEDULING["obs_trace"]:
+        problems.append(f"obs trace sha256 {sha} != reference {SCHEDULING['obs_trace']}")
+    if obs.validate_chrome_trace(obs.to_chrome_trace(tracer)):
+        problems.append("the obs trace fails validation")
+    done = lambda res: sorted((je.job.job_id, je.completion) for je in res.jobs if je.completion is not None)
+    if bare.makespan != fleet.makespan or done(bare) != done(fleet):
+        problems.append("the untraced fleet run gave another timeline")
+    history = ROOT / "build" / "obs_history.json"
+    history.unlink(missing_ok=True)
+    for res in (fleet, bare):
+        obs.append_rows(str(history), [("obs.traced_fleet.makespan_mcycles", res.makespan / 1e6),
+                                       ("obs.traced_fleet.n_completed", float(len(done(res))))],
+                        commit="working-tree")
+    if obs.check_regression(obs.load_history(str(history))):
+        problems.append(f"history regressions {obs.check_regression(obs.load_history(str(history)))}")
+    print(f"  obs smoke: {len(tracer.events)} trace events, {len(blob)} bytes, sha256 {sha[:16]}, "
+          f"written to {trace_out.relative_to(ROOT)}; history rows in {history.relative_to(ROOT)}")
+    for name, scenario in SERVING_SCENARIOS.items():
+        t = time.perf_counter()
+        summary, res = scenario(pkg)
+        host_ms[f"serve {name}"] = (time.perf_counter() - t) * 1e3
+        sha = summary_sha256(summary)
+        print(f"  {name}: {len(res.jobs)} jobs, makespan {res.makespan:.0f} cycles, summary sha256 {sha[:16]}")
+        if sha != SCHEDULING["summaries"][name]:
+            problems.append(f"{name} summary sha256 {sha} != reference {SCHEDULING['summaries'][name]}")
+    print(f"  host times on {smi} (ms): " + " ".join(f"{k}={v:.1f}" for k, v in host_ms.items()))
+    print(f"  host time of plan+price over {len(sims)} presets on {smi}: "
+          f"{sum(v for k, v in host_ms.items() if k.startswith('plan+price')):.1f} ms")
+    if problems:
+        print("FAILED scheduling layer: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    return 0
 
 
 def rand_residues(shape, primes, gen) -> torch.Tensor:
@@ -868,6 +1198,7 @@ def main() -> int:
     if problems:
         print("FAILED lstm group path: " + "; ".join(problems), file=sys.stderr)
         return 1
+    group_ctx, group_ct = ctx, ct
     for label, fn in (
         *((f"{name} ctx.mul", lambda c=c, x=x: c.mul(x, x)) for name, (c, x) in mul_ctxs.items()),
         ("MLP (apply_bsgs, square, apply_bsgs)",
@@ -1096,6 +1427,11 @@ def main() -> int:
               f"idle share {1 - busy / wall:.3f}")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top))
+
+    # -- 3h. the planner against the card's traces; traced multiply; scheduling --
+    if phase_3h(kernels, paths, launches_of, (group_ctx, group_ct), (mlp_ctx, mlp_ct, plan1), bgv_muls["psi"],
+                bgv_muls["exact_count"][:2], mul_ctxs[TRACED_MUL["preset"]], smi):
+        return 1
 
     # -- 4. report ---------------------------------------------------------------
     # launches: from the path that carries the kernel at the lstm shape of its first case

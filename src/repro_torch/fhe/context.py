@@ -92,6 +92,26 @@ class ExecPolicy:
         """This policy re-tagged for ``scheme`` (itself when it already matches)."""
         return self if scheme == self.scheme else dataclasses.replace(self, scheme=scheme)
 
+    def traced(self, tracer) -> "ExecPolicy":
+        """This policy with its kernel launches recorded into ``tracer`` (a
+        ``repro_torch.obs.Tracer``): each dispatch becomes a unit-width slice at
+        its dispatch index (kernels have no sim-time of their own).  Composes
+        with an existing hook — both observe every launch.  A disabled tracer
+        (or None) returns ``self`` unchanged, preserving the zero-overhead rule.
+        ``policy_key`` ignores hooks, so the traced policy prices identically.
+        """
+        if tracer is None or not tracer:
+            return self
+        traced_hook = tracer.dispatch_hook()
+        prior = self.dispatch_hook
+        if prior is None:
+            hook = traced_hook
+        else:
+            def hook(op: str) -> None:
+                prior(op)
+                traced_hook(op)
+        return dataclasses.replace(self, dispatch_hook=hook)
+
     # -- resolved views -----------------------------------------------------
     # The reference also resolves ``stage`` and ``plan_fused`` here, on JAX's
     # default backend.  This package resolves "auto" on a device, which a

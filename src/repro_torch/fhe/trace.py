@@ -2,9 +2,9 @@
 
 FHE programs are data-oblivious, so the exact instruction stream (NTT/INTT/BCONV/
 PMULT/PADD/AUTO/KSK loads...) is known statically.  The FHE ops record into an
-ambient trace when one is active; a scheduler can replay these traces
-through a cycle-level simulator — mirroring the paper's design, where
-software generates the static control instructions.
+ambient trace when one is active; the scheduler (repro_torch.core) replays these
+traces through the cycle-level simulator and the cache model — mirroring the
+paper's "software driver generates static control instructions" design.
 """
 
 from __future__ import annotations

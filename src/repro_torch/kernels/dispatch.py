@@ -11,7 +11,10 @@ Counting happens at Python call time, once per launch: PyTorch runs eagerly,
 so the count is the number of kernels the call issued.  The op names are the
 reference package's, so the counts of the two packages compare key for key.
 
-``hook_dispatches`` lets an observer see every launch in a block.
+``hook_dispatches`` lets an observer see every launch in a block:
+``repro_torch.obs.Tracer.dispatch_hook()`` plugs into it (through
+``ExecPolicy.traced``) and turns each launch into a unit-width slice at its
+dispatch index.
 """
 
 from __future__ import annotations
