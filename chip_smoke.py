@@ -69,6 +69,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            serving scenarios), each against the reference's SHA-256 in
            ``SCHEDULING``, with its host time; the trace goes to
            ``build/obs_trace.json``, the history rows to ``build/obs_history.json``;
+       3i. the LLM serving path (``repro_torch.models``, ``serving``,
+           ``launch``), which launches none of the kernels above:
+           ``smollm-135m`` at full width (weights from a numpy seed in the
+           reference's layout, ``LLM``), prefill and 8 teacher-forced decode
+           steps on the card against the port's CPU path (``LLM_TOL``), once
+           more with cuBLAS's reduced-precision reductions allowed, for the
+           record; prefill and decode times (CUDA events), tokens/s and the
+           profiler's busy share of one decode step; ``Engine.generate`` of
+           32 greedy tokens twice, which must agree; the nine other archs at
+           SMOKE width, prefill and one decode step against the CPU path
+           (``SMOKE_TOL``); and ``launch.serve --arch smollm-135m --full``;
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -728,6 +739,280 @@ def phase_3h(kernels, paths, launches_of, lstm, mlp, psi, exact, mul, smi) -> in
           f"{sum(v for k, v in host_ms.items() if k.startswith('plan+price')):.1f} ms")
     if problems:
         print("FAILED scheduling layer: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    return 0
+
+
+# -- phase 3i: the LLM serving path --------------------------------------------
+# smollm-135m at full width at the launcher's defaults (batch 4, prompt 16, 32
+# tokens, max_seq 128).  Its weights come from a numpy seed in the reference's
+# tree layout and scales (repro.models.lm.init_params, _dense_init); the
+# prompts from the data pipeline; FORCED more tokens from it drive the
+# teacher-forced decode steps.  tests/test_torch_llm_serving.py holds the
+# port's CPU path against the reference at these weights and inputs, so the
+# chain card → CPU port → reference is explicit.
+LLM = dict(arch="smollm-135m", seed=20261017, batch=4, prompt_len=16, tokens=32, max_seq=128, forced=8)
+# |card − CPU port| ≤ atol + rtol·|CPU| and a correlation floor: the full
+# width's logits; the SMOKE archs' logits, bfloat16 caches and float32 SSM
+# state (the tests hold the CPU port to the reference with the same bounds).
+# All lie far inside the reference's own prefill/decode consistency bound
+# (atol 0.55, rtol 0.15, corr > 0.98, tests/test_arch_smoke.py).
+LLM_TOL = dict(atol=0.1, rtol=0.02, corr=0.9995)
+SMOKE_TOL = dict(logits=dict(atol=0.08, rtol=0.02, corr=0.9995), cache=dict(atol=0.05, rtol=0.01, corr=0.9995),
+                 ssm=dict(atol=0.05, rtol=0.02, corr=0.9995))
+# A first-layer router gap (k-th minus (k+1)-th probability) below this is a
+# near-tie that two bfloat16 implementations may break either way: the MoE
+# archs' caches after that layer are compared without those positions.
+MOE_MARGIN = 2e-3
+
+
+def llm_reference_tree(cfg, seed: int) -> dict:
+    """A dense attention model's parameters in the reference's tree layout
+    (``blocks`` stacked on a leading layer axis) and init scales, as float32
+    numpy arrays drawn from ``seed``."""
+    if cfg.mixer != "attn" or cfg.is_moe:
+        raise ValueError(f"{cfg.arch_id}: llm_reference_tree builds dense attention models only")
+    rng = np.random.default_rng(seed)
+    d, f, hd, nl = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_layers
+
+    def dense(shape, scale=None):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale if scale is not None else 1.0 / np.sqrt(shape[0]))
+
+    def stacked(shape):
+        return np.stack([dense(shape) for _ in range(nl)])
+
+    n_qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    attn = {"ln": np.ones((nl, d), np.float32), "wqkv": stacked((d, n_qkv)), "wo": stacked((cfg.n_heads * hd, d))}
+    if cfg.qkv_bias:
+        attn["bqkv"] = np.zeros((nl, n_qkv), np.float32)
+    ffn = {"w1": stacked((d, f)), "w2": stacked((f, d))}
+    if cfg.act == "swiglu":
+        ffn["w3"] = stacked((d, f))
+    tree = {"embed": dense((cfg.vocab, d), 0.02), "final_ln": np.ones((d,), np.float32),
+            "blocks": {"attn": attn, "ffn_ln": np.ones((nl, d), np.float32), "ffn": ffn}}
+    if not cfg.tie_embeddings:
+        tree["head"] = dense((d, cfg.vocab))
+    return tree
+
+
+def llm_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
+    """(prompts (batch, prompt_len), forced tokens (batch, FORCED)), int32."""
+    from repro_torch.data import pipeline
+
+    prompts = pipeline.synthetic_lm_batch(0, 0, LLM["batch"], LLM["prompt_len"] - 1, cfg.vocab)
+    forced = pipeline.synthetic_lm_batch(0, 1, LLM["batch"], LLM["forced"] - 1, cfg.vocab)
+    return prompts, forced
+
+
+def teacher_forced(api, params, prompts, forced, max_seq: int, device) -> tuple[list, dict]:
+    """Prefill ``prompts``, then one decode step per column of ``forced``:
+    ([prefill logits, step logits...], the last cache)."""
+    cache = api.init_cache(prompts.shape[0], max_seq, device=device)
+    logits, cache = api.prefill(params, cache, tokens=torch.as_tensor(prompts, device=device))
+    out = [logits]
+    for i in range(forced.shape[1]):
+        logits, cache = api.decode_step(params, torch.as_tensor(forced[:, i], device=device), cache)
+        out.append(logits)
+    return out, cache
+
+
+def smoke_inputs(cfg, b: int = 2, s: int = 48, seed: int = 7) -> dict:
+    """Numpy prefill inputs of ``s`` positions (patches or frames included)
+    and a decode token, for a SMOKE arch."""
+    rng = np.random.default_rng(seed)
+    n, out = s, {}
+    if cfg.family == "vlm":
+        n -= cfg.n_patches
+        out["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model), dtype=np.float32)
+    elif cfg.family == "audio":
+        n -= cfg.enc_seq
+        out["frames"] = rng.standard_normal((b, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    out["tokens"] = rng.integers(0, cfg.vocab, (b, n), dtype=np.int32)
+    out["token"] = rng.integers(0, cfg.vocab, b, dtype=np.int32)
+    return out
+
+
+def near_ties(cfg, params, tokens) -> np.ndarray:
+    """(B, S) mask of the positions whose first-layer router gap is below
+    ``MOE_MARGIN`` (all False for a dense model), from the port's ``params``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    b, s = tokens.shape
+    if not cfg.is_moe:
+        return np.zeros((b, s), bool)
+    p0 = params["blocks"][0]
+    tok = torch.as_tensor(tokens, device=params.device)
+    with torch.no_grad():
+        x = lm.embed(cfg, params, tok)
+        h = x + lm.attn_forward(cfg, p0["attn"], x, torch.arange(s, device=tok.device).expand(b, s), window=0)
+        hn = L.rmsnorm(h, p0["ffn_ln"].to(h.dtype)).float()
+        probs = torch.sort(torch.softmax(hn @ p0["moe"]["router"], dim=-1), dim=-1, descending=True).values
+    return (probs[..., cfg.top_k - 1] - probs[..., cfg.top_k] < MOE_MARGIN).cpu().numpy()
+
+
+def compare(ref, got, atol: float, rtol: float, corr: float, where=None) -> tuple[float, float, bool]:
+    """(max |got − ref|, correlation, within atol + rtol·|ref| and above ``corr``),
+    on the entries ``where`` selects if given."""
+    r = ref.detach().float().cpu().numpy()
+    g = got.detach().float().cpu().numpy()
+    if where is not None:
+        r, g = r[where], g[where]
+    d = np.abs(g - r)
+    c = float(np.corrcoef(r.ravel(), g.ravel())[0, 1]) if r.size > 1 else 1.0
+    return float(d.max(initial=0.0)), c, bool(np.all(d <= atol + rtol * np.abs(r))) and c > corr
+
+
+def compare_caches(cfg, ref: dict, got: dict, ties: np.ndarray) -> dict:
+    """{cache key: compare(...)} under ``SMOKE_TOL``; the layers after a MoE
+    layer leave out its near-tie positions (the axis after batch)."""
+    out = {}
+    for k in ref:
+        if k == "t":
+            out[k] = (float(abs(int(ref[k]) - int(got[k]))), 1.0, int(ref[k]) == int(got[k]))
+            continue
+        where = None
+        if k in ("k", "v") and ties.any():
+            where = np.ones(tuple(ref[k].shape), bool)
+            bi, pi = np.nonzero(ties)
+            where[1:, bi, pi] = False
+        out[k] = compare(ref[k], got[k], where=where, **SMOKE_TOL["ssm" if k == "ssm" else "cache"])
+    return out
+
+
+def phase_3i(paths, reset_launches, read_launches, smi) -> int:
+    """Phase 3i: the LLM serving path on the card — smollm-135m at full width
+    against the port's CPU path, 32 greedy tokens twice, the nine other archs
+    at SMOKE width, and ``launch.serve`` in-process.  ``paths``,
+    ``reset_launches`` and ``read_launches`` are ``main``'s launch table and
+    counters (this path launches none of the FHE kernels), ``smi`` the card's
+    name and power limit.  Returns 0, or 1 after printing what failed."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import lm, registry
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.serving.engine import Engine, SamplerConfig
+
+    problems = []
+    cfg = configs.get_config(LLM["arch"])
+    api = registry.build(cfg)
+    print(f"{cfg.arch_id} at full width: {cfg.n_layers} layers, d = {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV, vocab {cfg.vocab}, {cfg.param_count() / 1e6:.1f} M parameters; batch "
+          f"{LLM['batch']}, prompt {LLM['prompt_len']}, {LLM['forced']} teacher-forced steps, max_seq {LLM['max_seq']}")
+    t = time.perf_counter()
+    tree = llm_reference_tree(cfg, LLM["seed"])
+    cpu_params = params_from_reference(cfg, tree, device="cpu")
+    params = params_from_reference(cfg, tree, device=DEVICE)
+    print(f"  weights from numpy seed {LLM['seed']} through params_from_reference: {time.perf_counter() - t:.1f} s")
+    prompts, forced = llm_inputs(cfg)
+
+    reset_launches()
+    on_card, cache = teacher_forced(api, params, prompts, forced, LLM["max_seq"], DEVICE)
+    torch.cuda.synchronize()
+    paths["3i smollm teacher-forced"] = launched = read_launches()
+    if any(launched.values()):
+        problems.append(f"the LLM path launched FHE kernels: {launched}")
+    off_device = [k for k, v in cache.items() if v.device.type != "cuda"]
+    if off_device:
+        problems.append(f"cache tensors off the card: {off_device}")
+    t = time.perf_counter()
+    on_cpu, _ = teacher_forced(api, cpu_params, prompts, forced, LLM["max_seq"], "cpu")
+    print(f"  the same on the port's CPU path: {time.perf_counter() - t:.1f} s")
+    rows = [compare(c, g, **LLM_TOL) for c, g in zip(on_cpu, on_card)]
+    print(f"  card vs CPU logits (prefill, then each step): max |d| "
+          + " ".join(f"{r[0]:.4f}" for r in rows) + f"; min corr {min(r[1] for r in rows):.6f}; "
+          f"bound atol {LLM_TOL['atol']} rtol {LLM_TOL['rtol']} corr > {LLM_TOL['corr']}")
+    if not all(r[2] for r in rows):
+        problems.append(f"smollm-135m card vs CPU logits out of bounds: {rows}")
+    # the same with cuBLAS free to reduce bfloat16 products in bfloat16 and to
+    # take TF32 (PyTorch's defaults, which layers.reference_precision turns off)
+    m = torch.backends.cuda.matmul
+    saved = m.allow_bf16_reduced_precision_reduction, m.allow_tf32
+    m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = True, True
+    try:
+        with torch.no_grad():
+            c0 = lm.init_cache(cfg, LLM["batch"], LLM["max_seq"], DEVICE)
+            loose, _ = lm.prefill(cfg, params, torch.as_tensor(prompts, device=DEVICE), c0)
+    finally:
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = saved
+    r = compare(on_cpu[0], loose, **LLM_TOL)
+    print(f"  prefill with reduced-precision bf16 reductions and TF32 allowed: max |d| {r[0]:.4f}, corr {r[1]:.6f} "
+          f"(reference precision: {rows[0][0]:.4f}, {rows[0][1]:.6f})")
+
+    # timing: CUDA events, host included (the engine's own launches)
+    def prefill_once():
+        return api.prefill(params, api.init_cache(LLM["batch"], LLM["max_seq"], device=DEVICE),
+                           tokens=torch.as_tensor(prompts, device=DEVICE))
+
+    _, warm = prefill_once()
+    tok = torch.as_tensor(forced[:, 0], device=DEVICE)
+    prefill_ms = time_ms(prefill_once, iters=5, warmup=1)
+    state = {"cache": warm}
+
+    def decode_once():
+        _, state["cache"] = api.decode_step(params, tok, state["cache"])
+
+    decode_ms = time_ms(decode_once, iters=LLM["tokens"] - 1, warmup=1)
+    eng = Engine(api, params, batch=LLM["batch"], max_seq=LLM["max_seq"], device=DEVICE)
+    greedy = SamplerConfig(temperature=0.0)
+    steps = {}
+    first = timed(steps, "generate #1", lambda: eng.generate(prompts, LLM["tokens"], greedy))
+    second = timed(steps, "generate #2", lambda: eng.generate(prompts, LLM["tokens"], greedy))
+    if not np.array_equal(first, second) or first.shape != (LLM["batch"], LLM["tokens"]):
+        problems.append(f"greedy generation differs between two runs: {first} vs {second}")
+    busy, wall, by_name = device_busy(lambda: api.decode_step(params, tok, warm))
+    gen_tps = LLM["batch"] * LLM["tokens"] / (steps["generate #2"] / 1e3)
+    print(f"  on {smi}: prefill {prefill_ms:.3f} ms; decode {decode_ms:.3f} ms a step, "
+          f"{LLM['batch'] * 1e3 / decode_ms:.1f} tokens/s; Engine.generate of {LLM['tokens']} tokens "
+          f"{steps['generate #1']:.1f} ms then {steps['generate #2']:.1f} ms, {gen_tps:.1f} tokens/s; "
+          f"one decode step under the profiler: device busy {busy:.3f} ms of {wall:.3f} ms wall, "
+          f"busy share {busy / wall:.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top))
+    print(f"  greedy tokens identical over two runs: {np.array_equal(first, second)}; row 0: {first[0, :12].tolist()}")
+
+    print("the nine other archs at SMOKE width, card vs the port's CPU path (prefill, one decode step):")
+    for arch in configs.ARCH_IDS:
+        if arch == LLM["arch"]:
+            continue
+        scfg = configs.get_config(arch, smoke=True)
+        sapi = registry.build(scfg)
+        cpu_p = sapi.init_params(0, device="cpu")
+        card_p = copy.deepcopy(cpu_p).to(DEVICE)
+        inp = smoke_inputs(scfg)
+        token = inp.pop("token")
+        outs = {}
+        for dev, p in (("cpu", cpu_p), (DEVICE, card_p)):
+            c = sapi.init_cache(2, 64, device=dev)
+            lg, c = sapi.prefill(p, c, **{k: torch.as_tensor(v, device=dev) for k, v in inp.items()})
+            lg2, c2 = sapi.decode_step(p, torch.as_tensor(token, device=dev), c)
+            outs[dev] = (lg, c, lg2, c2)
+        ties = near_ties(scfg, cpu_p, np.concatenate([inp["tokens"], token[:, None]], 1))
+        (lc, cc, lc2, cc2), (lg, cg, lg2, cg2) = outs["cpu"], outs[DEVICE]
+        res = {"prefill logits": compare(lc, lg, **SMOKE_TOL["logits"]),
+               "decode logits": compare(lc2, lg2, **SMOKE_TOL["logits"])}
+        res.update({f"prefill {k}": v for k, v in compare_caches(scfg, cc, cg, ties[:, :-1]).items()})
+        res.update({f"decode {k}": v for k, v in compare_caches(scfg, cc2, cg2, ties).items()})
+        bad = {k: v for k, v in res.items() if not v[2]}
+        print(f"  {arch}: " + ", ".join(f"{k} {v[0]:.4f}" for k, v in res.items())
+              + (f"; near-tie positions left out {int(ties.sum())}" if scfg.is_moe else ""))
+        if bad:
+            problems.append(f"{arch} card vs CPU out of bounds: {bad}")
+        if any(v.device.type != "cuda" for v in cg2.values()):
+            problems.append(f"{arch}: cache tensors off the card")
+
+    t = time.perf_counter()
+    out = serve_launch.main(["--arch", LLM["arch"], "--full"])
+    torch.cuda.synchronize()
+    print(f"  repro_torch.launch.serve --arch {LLM['arch']} --full: {out.shape} tokens in "
+          f"{(time.perf_counter() - t) * 1e3:.1f} ms (init included)")
+    if out.shape != (LLM["batch"], LLM["tokens"]) or out.min() < 0 or out.max() >= cfg.vocab:
+        problems.append(f"launch.serve gave {out.shape} tokens in [{out.min()}, {out.max()}]")
+    if problems:
+        print("FAILED LLM serving: " + "; ".join(problems), file=sys.stderr)
         return 1
     return 0
 
@@ -1431,6 +1716,10 @@ def main() -> int:
     # -- 3h. the planner against the card's traces; traced multiply; scheduling --
     if phase_3h(kernels, paths, launches_of, (group_ctx, group_ct), (mlp_ctx, mlp_ct, plan1), bgv_muls["psi"],
                 bgv_muls["exact_count"][:2], mul_ctxs[TRACED_MUL["preset"]], smi):
+        return 1
+
+    # -- 3i. the LLM serving path ----------------------------------------------
+    if phase_3i(paths, reset_launches, read_launches, smi):
         return 1
 
     # -- 4. report ---------------------------------------------------------------

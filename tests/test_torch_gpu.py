@@ -3,7 +3,8 @@
 Every test needs a CUDA card, ``nvcc`` and sm_90a (an H100): each skips inside
 the ``card`` fixture where there is none.  The last tests run the rotation
 slice, the n = 2^8 bootstrap, BGV at ``psi`` and the multi-job executor end
-to end on the card against the reference digests of ``chip_smoke.py``.  Run
+to end on the card against the reference digests of ``chip_smoke.py``, and
+each LM arch at SMOKE size against the port's CPU path.  Run
 them on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -311,3 +312,36 @@ def test_executor_on_four_streams_equals_four_ctx_muls(card):
         assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1) and got.scale == want.scale
     assert cs.digest(outs[0]) == cs.REFERENCE["matmul"]["digest"]
     assert [cs.digest(o) for o in outs] == list(cs.EXECUTOR["digests"][:4])
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "phi-3-vision-4.2b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
+                                  "mamba2-1.3b", "smollm-135m", "granite-20b", "qwen1.5-110b", "phi3-medium-14b",
+                                  "whisper-medium"])
+def test_smoke_llm_on_the_card_matches_the_cpu(card, arch):
+    """Each LM arch at SMOKE size: prefill and one decode step on the card
+    against the port's CPU path at the same weights, under chip_smoke.py's
+    bounds (MoE near-tie positions left out of the caches after layer 0)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cs = _chip_smoke()
+    cfg = configs.get_config(arch, smoke=True)
+    api = registry.build(cfg)
+    cpu = api.init_params(0, device="cpu")
+    inp = cs.smoke_inputs(cfg)
+    token = inp.pop("token")
+    outs = []
+    for dev, params in (("cpu", cpu), (card, copy.deepcopy(cpu).to(card))):
+        logits, cache = api.prefill(params, api.init_cache(2, 64, device=dev),
+                                    **{k: torch.as_tensor(v, device=dev) for k, v in inp.items()})
+        outs.append((logits, cache) + api.decode_step(params, torch.as_tensor(token, device=dev), cache))
+    (lc, cc, lc2, cc2), (lg, cg, lg2, cg2) = outs
+    assert all(v.device.type == "cuda" for v in (*cg.values(), *cg2.values()))
+    ties = cs.near_ties(cfg, cpu, np.concatenate([inp["tokens"], token[:, None]], 1))
+    for ref, got in ((lc, lg), (lc2, lg2)):
+        assert cs.compare(ref, got, **cs.SMOKE_TOL["logits"])[2]
+    for ref, got, t in ((cc, cg, ties[:, :-1]), (cc2, cg2, ties)):
+        res = cs.compare_caches(cfg, ref, got, t)
+        assert all(v[2] for v in res.values()), res
