@@ -80,6 +80,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            32 greedy tokens twice, which must agree; the nine other archs at
            SMOKE width, prefill and one decode step against the CPU path
            (``SMOKE_TOL``); and ``launch.serve --arch smollm-135m --full``;
+       3j. the training path (``repro_torch.training``, ``checkpoint``,
+           ``roofline``, ``launch.train``), which launches none of the kernels
+           above either: one AdamW train step of each of the ten archs at
+           SMOKE width against the CPU path (``SMOKE_TRAIN_TOL``);
+           ``smollm-135m`` at full width, one step at 2 × 128 against the
+           CPU path (loss, gradient norm and correlation, the params after
+           the step: ``TRAIN_TOL``), the int8 gradient compression against
+           the CPU's bits and over a one-rank NCCL group, then 16 × 512 with
+           remat (ms a step by CUDA events, tokens/s, MFU, the roofline's
+           terms, peak memory, the profiler's busy share, microbatch 4);
+           ``launch.train.run`` at SMOKE for 300 steps with a checkpoint every
+           100, a restore, a resume from step 200 against the uninterrupted
+           losses, and 48 greedy tokens from the trained params;
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -1017,6 +1030,316 @@ def phase_3i(paths, reset_launches, read_launches, smi) -> int:
     return 0
 
 
+# Phase 3j: the training path (repro_torch.training, checkpoint, roofline,
+# launch.train).  TRAIN_ACFG is the schedule of the SMOKE run below (warm-up
+# max(5, 300 // 20) = 15 steps); the parity steps use it too, so their first
+# step moves each weight by about lr_at(TRAIN_ACFG, 0) = 2e-4.
+TRAIN = dict(arch="smollm-135m", parity=(2, 128), speed=(16, 512), warmup=3, iters=10, microbatch=4,
+             e2e=dict(steps=300, batch=16, seq=64, lr=3e-3, ckpt_every=100, resume=200, tokens=48))
+TRAIN_ACFG = dict(lr_peak=3e-3, warmup_steps=15, total_steps=300)
+# |card − CPU port| of one train step.  The loss, the gradient norm and the
+# gradients' per-leaf correlation; then the AdamW update d = w_new − w0,
+# weight by weight (both sides start from the same w0, so the updates differ
+# as the weights after the step do).  The first Adam step moves a weight by
+# lr·(g/(|g| + eps) + wd·w) ≈ lr·(sign g + wd·w): where the two gradients
+# share a sign the updates differ by float32 roundings (two of the weight,
+# 2^-22·|w|) and by the eps term, far below update_lr·lr.  A weight whose
+# gradient on the side held as the reference lies below `tie` of its leaf's
+# largest is a near-tie that two implementations may break either way; it
+# is held only to params_lr·lr, what a sign flip costs.  Leaving the weights
+# unchanged, or the bias correction out, moves every update by ≥ 0.55·lr.
+# The second step (AdamW alone, on identical inputs on both devices, where
+# m̂/√v̂ is no longer sign g) holds every weight to update_lr·lr.
+TRAIN_TOL = dict(loss=0.01, grad_norm_rel=1e-2, grad_corr=0.999, tie=0.05, update_lr=1e-3, params_lr=2.0,
+                 params_rtol=2**-22, microbatch_loss=2e-2, resume=0.05)
+# the ten archs at SMOKE width (the loss as the serving checks' SMOKE bound)
+SMOKE_TRAIN_TOL = dict(loss=0.011, grad_norm_rel=2e-2)
+
+
+def _np64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float64).cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def update_gap(w0, ref, got, ref_grads, lr: float) -> dict:
+    """One AdamW update of ``got`` against ``ref`` (leaf lists in one order:
+    the weights before, the reference's and the held side's after, the
+    gradients or first moments behind ``ref``), in units of ``lr`` after the
+    slack of two float32 roundings: {"kept": largest over the weights that
+    are not near-ties (``|ref_grads|`` ≥ TRAIN_TOL["tie"] of the leaf's
+    largest), "all": largest over all weights, "share": the share kept}."""
+    kept = total = 0
+    worst_kept = worst_all = 0.0
+    for a, r, g, m in zip(w0, ref, got, ref_grads):
+        a, r, g, m = (_np64(x).ravel() for x in (a, r, g, m))
+        err = (np.abs((g - a) - (r - a)) - TRAIN_TOL["params_rtol"] * np.abs(a)) / lr
+        keep = np.abs(m) >= TRAIN_TOL["tie"] * np.abs(m).max()
+        kept, total = kept + int(keep.sum()), total + a.size
+        worst_all = max(worst_all, float(err.max()))
+        if keep.any():
+            worst_kept = max(worst_kept, float(err[keep].max()))
+    return {"kept": worst_kept, "all": worst_all, "share": kept / total}
+
+
+def train_once(api, acfg, params, batch: dict) -> dict:
+    """One train step from fresh AdamW state on ``params``' device: the loss,
+    the gradients, their global norm, the params and the state after the
+    update."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    dev = opt.tree_leaves(params)[0].device
+    loss, grads = ts.loss_and_grads(api, params, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    new_params, state, gnorm = opt.apply_updates(acfg, params, grads, opt.init_state(params))
+    return dict(loss=float(loss), grads=grads, grad_norm=float(gnorm), params=new_params, state=state)
+
+
+def second_step_gap(acfg, cpu: dict, seed: int) -> float:
+    """AdamW's second step alone, on the card against the CPU from identical
+    inputs: ``cpu``'s weights and state after its first step, and its
+    gradients times a seeded normal draw.  The largest update gap in units
+    of lr_at(1), over every weight."""
+    from repro_torch.training import optimizer as opt
+
+    gen = torch.Generator().manual_seed(seed)
+    p1, grads = cpu["params"], cpu["grads"]
+    g2 = opt.tree_map(lambda g: g * torch.randn(g.shape, generator=gen, dtype=g.dtype), grads)
+    on = lambda t: opt.tree_map(lambda x: x.detach().to(DEVICE), t)
+    state = {"m": on(cpu["state"]["m"]), "v": on(cpu["state"]["v"]), "step": cpu["state"]["step"].to(DEVICE)}
+    c, _, _ = opt.apply_updates(acfg, p1, g2, cpu["state"])
+    g, _, _ = opt.apply_updates(acfg, on(p1), on(g2), state)
+    leaves = opt.tree_leaves
+    return update_gap(leaves(p1), leaves(c), leaves(g), leaves(g2), float(opt.lr_at(acfg, 1)))["all"]
+
+
+def train_parity(acfg, before, cpu: dict, card: dict) -> dict:
+    """``train_once`` on the CPU and on the card from the weights ``before``,
+    held against ``TRAIN_TOL``: {name: (value, bound, ok)}, the gradients'
+    min per-leaf correlation included (leaves of one element, or constant
+    ones, left out)."""
+    from repro_torch.training import optimizer as opt
+
+    gc = [g.detach().float().cpu().numpy().ravel() for g in opt.tree_leaves(cpu["grads"])]
+    gg = [g.detach().float().cpu().numpy().ravel() for g in opt.tree_leaves(card["grads"])]
+    corr = min(float(np.corrcoef(a, b)[0, 1]) for a, b in zip(gc, gg) if a.size > 1 and a.std() > 0)
+    leaves = opt.tree_leaves
+    up = update_gap(leaves(before), leaves(cpu["params"]), leaves(card["params"]), gc, float(opt.lr_at(acfg, 0)))
+    finite = all(bool(torch.isfinite(g).all()) for g in opt.tree_leaves(card["grads"]))
+    dl = abs(card["loss"] - cpu["loss"])
+    rel = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    return {"loss |d|": (dl, TRAIN_TOL["loss"], dl <= TRAIN_TOL["loss"]),
+            "grad_norm rel": (rel, TRAIN_TOL["grad_norm_rel"], rel <= TRAIN_TOL["grad_norm_rel"]),
+            "grad corr min": (corr, TRAIN_TOL["grad_corr"], corr >= TRAIN_TOL["grad_corr"]),
+            f"update |d|/lr, {up['share']:.3f} of the weights (no near-tie)":
+                (up["kept"], TRAIN_TOL["update_lr"], up["kept"] <= TRAIN_TOL["update_lr"]),
+            "update |d|/lr, all weights": (up["all"], TRAIN_TOL["params_lr"], up["all"] <= TRAIN_TOL["params_lr"]),
+            "grads finite": (float(finite), 1.0, finite)}
+
+
+def phase_3j(paths, reset_launches, read_launches, smi) -> int:
+    """Phase 3j: the training path on the card — the ten archs' SMOKE train
+    step against the CPU, smollm-135m at full width (one step against the
+    CPU; ms a step, tokens/s, MFU and the roofline at 16 × 512; microbatch
+    4), ``launch.train.run`` at SMOKE with checkpoints and a resume, and the
+    int8 compression.  Arguments as ``phase_3i``'s.  Returns 0, or 1 after
+    printing what failed."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import manager
+    from repro_torch.core.hardware import H100_HBM_BPS, H100_PEAK_FLOPS_BF16
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import registry
+    from repro_torch.models.convert import params_from_reference, reference_layout
+    from repro_torch.roofline import analysis, memory_model
+    from repro_torch.serving.engine import Engine, SamplerConfig
+    from repro_torch.training import compress
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    problems = []
+    acfg = opt.AdamWConfig(**TRAIN_ACFG)
+    reset_launches()
+
+    print("the ten archs at SMOKE width, one train step, card vs the port's CPU path:")
+    for arch in configs.ARCH_IDS:
+        scfg = configs.get_config(arch, smoke=True)
+        sapi = registry.build(scfg)
+        cpu_p = sapi.init_params(0, device="cpu")
+        batch = smoke_inputs(scfg, 2, 49)
+        batch.pop("token")
+        c, g = (train_once(sapi, acfg, p, batch) for p in (cpu_p, copy.deepcopy(cpu_p).to(DEVICE)))
+        dl, rel = abs(g["loss"] - c["loss"]), abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+        finite = all(bool(torch.isfinite(x).all()) for x in opt.tree_leaves(g["grads"]))
+        print(f"  {arch}: loss {g['loss']:.4f} (|d| {dl:.5f}), grad_norm {g['grad_norm']:.4f} (rel {rel:.2e}), "
+              f"grads finite {finite}")
+        if not (dl <= SMOKE_TRAIN_TOL["loss"] and rel <= SMOKE_TRAIN_TOL["grad_norm_rel"] and finite):
+            problems.append(f"{arch} SMOKE train step: loss |d| {dl}, grad_norm rel {rel}, finite {finite} "
+                            f"(bounds {SMOKE_TRAIN_TOL})")
+
+    cfg = configs.get_config(TRAIN["arch"])
+    api = registry.build(cfg)
+    tree = llm_reference_tree(cfg, LLM["seed"])
+    cpu_params = params_from_reference(cfg, tree, device="cpu")
+    params = params_from_reference(cfg, tree, device=DEVICE)
+    b, s = TRAIN["parity"]
+    batch = {"tokens": pipeline.synthetic_lm_batch(LLM["seed"], 0, b, s, cfg.vocab)}
+    t = time.perf_counter()
+    on_cpu = train_once(api, acfg, cpu_params, batch)
+    cpu_s = time.perf_counter() - t
+    on_card = train_once(api, acfg, params, batch)
+    res = train_parity(acfg, cpu_params, on_cpu, on_card)
+    gap2 = second_step_gap(acfg, on_cpu, LLM["seed"])
+    res["second step (AdamW alone) |d|/lr, all weights"] = (gap2, TRAIN_TOL["update_lr"],
+                                                           gap2 <= TRAIN_TOL["update_lr"])
+    print(f"{cfg.arch_id} at full width ({cfg.param_count() / 1e6:.1f} M parameters), one train step at {b} × {s}, "
+          f"card vs the port's CPU path ({cpu_s:.1f} s): loss {on_card['loss']:.5f} vs {on_cpu['loss']:.5f}, "
+          f"grad_norm {on_card['grad_norm']:.5f} vs {on_cpu['grad_norm']:.5f}; "
+          + ", ".join(f"{k} {v[0]:.6g} (bound {v[1]:.3g})" for k, v in res.items()))
+    bad = {k: v for k, v in res.items() if not v[2]}
+    if bad:
+        problems.append(f"{cfg.arch_id} full-width train step card vs CPU out of bounds: {bad}")
+    # the backward outside layers.reference_precision(), for the record (the
+    # train step never does this): under the process's own cuBLAS flags, and
+    # with bf16-reduced reductions and TF32 both allowed
+    m = torch.backends.cuda.matmul
+    saved = m.allow_bf16_reduced_precision_reduction, m.allow_tf32
+    for flags in (saved, (True, True)):
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = flags
+        try:
+            loss = api.train_loss(params, tokens=torch.as_tensor(batch["tokens"], device=DEVICE))
+            loose = torch.autograd.grad(loss, opt.tree_leaves(params))
+        finally:
+            m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = saved
+        dloose = max(float((a - bb).abs().max()) for a, bb in zip(loose, opt.tree_leaves(on_card["grads"])))
+        print(f"  the same gradients with the backward outside reference_precision (allow_bf16_reduced_"
+              f"precision_reduction={flags[0]}, allow_tf32={flags[1]}): max |d| {dloose:.3g}")
+    # compression of the full-width gradients: the card's bits are the CPU's
+    grads_cpu = [g.detach().cpu() for g in opt.tree_leaves(on_card["grads"])]
+    same = True
+    for g, gc in zip(opt.tree_leaves(on_card["grads"]), grads_cpu):
+        q, sc = compress.quantize(g)
+        qc, scc = compress.quantize(gc)
+        back = compress.dequantize(q, sc, g.shape, g.dtype).cpu()
+        same &= torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc) and torch.equal(
+            back, compress.dequantize(qc, scc, gc.shape, gc.dtype))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            reduced = opt.tree_leaves(compress.compressed_psum_mean(on_card["grads"]))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    psum_same = all(torch.equal(r, compress.dequantize(*compress.quantize(g), g.shape, g.dtype))
+                    for r, g in zip(reduced, opt.tree_leaves(on_card["grads"])))
+    print(f"  int8 compression of the {len(grads_cpu)} gradient leaves: quantize/dequantize on the card equal the "
+          f"CPU's bit for bit: {same}; compressed_psum_mean over a one-rank NCCL group equals "
+          f"dequantize(quantize(g)): {psum_same}")
+    if not (same and psum_same):
+        problems.append(f"compression on the card: bit-equal to the CPU {same}, one-rank psum exact {psum_same}")
+    del on_cpu, cpu_params, loose
+
+    # speed at 16 × 512 (remat on): CUDA events, host included
+    b, s = TRAIN["speed"]
+    tokens = torch.as_tensor(pipeline.synthetic_lm_batch(LLM["seed"], 1, b, s, cfg.vocab), device=DEVICE)
+    state0 = opt.init_state(params)
+    step1 = ts.build_train_step(api, None, acfg)
+    step4 = ts.build_train_step(api, None, acfg, microbatch=TRAIN["microbatch"])
+    _, _, m1 = step1(params, state0, {"tokens": tokens})
+    _, _, m4 = step4(params, state0, {"tokens": tokens})
+    dmb = abs(float(m1["loss"]) - float(m4["loss"]))
+    run = {"params": params, "state": state0}
+
+    def one_step(fn=step1):
+        run["params"], run["state"], _ = fn(run["params"], run["state"], {"tokens": tokens})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(one_step, iters=TRAIN["iters"], warmup=TRAIN["warmup"])
+    peak = torch.cuda.max_memory_allocated()
+    mb_ms = time_ms(lambda: one_step(step4), iters=3, warmup=1)
+    # the step's two layers apart: forward + backward (remat), then AdamW
+    _, grads = ts.loss_and_grads(api, run["params"], {"tokens": tokens})
+    fb_ms = time_ms(lambda: ts.loss_and_grads(api, run["params"], {"tokens": tokens}), iters=3, warmup=1)
+    adam_ms = time_ms(lambda: opt.apply_updates(acfg, run["params"], grads, run["state"]), iters=5, warmup=1)
+    del grads
+    busy, wall, by_name = device_busy(one_step)
+    n = cfg.param_count()
+    flops = analysis.model_flops_per_step(n, n, b * s, "train")
+    roof = analysis.roofline_terms(flops, memory_model.train_bytes(cfg, b, s), 0.0, 1)
+    print(f"  on {smi}: train step at {b} × {s} ({b * s} tokens, remat): {step_ms:.3f} ms a step over "
+          f"{TRAIN['iters']} steps after {TRAIN['warmup']}, {b * s * 1e3 / step_ms:.1f} tokens/s, "
+          f"MFU {flops / (step_ms / 1e3) / H100_PEAK_FLOPS_BF16:.4f} ({flops:.4g} FLOP ÷ {H100_PEAK_FLOPS_BF16:.3g}); "
+          f"roofline: compute {roof.compute_s * 1e3:.3f} ms, memory {roof.memory_s * 1e3:.3f} ms "
+          f"({roof.hbm_bytes:.4g} B ÷ {H100_HBM_BPS:.3g}); peak memory {peak / 2**30:.2f} GiB; "
+          f"microbatch {TRAIN['microbatch']}: {mb_ms:.3f} ms a step, loss {float(m4['loss']):.5f} vs "
+          f"{float(m1['loss']):.5f} (|d| {dmb:.2e}, bound {TRAIN_TOL['microbatch_loss']})")
+    print(f"  the step's parts: loss and gradients {fb_ms:.3f} ms, AdamW over "
+          f"{len(opt.tree_leaves(run['params']))} leaves {adam_ms:.3f} ms")
+    print(f"  one step under the profiler: device busy {busy:.3f} ms of {wall:.3f} ms wall, busy share "
+          f"{busy / wall:.3f}; device events {sum(by_name.values()):.3f} ms, their share "
+          f"{sum(by_name.values()) / wall:.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"    device events {sum(by_name.values()):.3f} ms: " + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top))
+    if dmb > TRAIN_TOL["microbatch_loss"]:
+        problems.append(f"microbatch {TRAIN['microbatch']} loss differs by {dmb}")
+    del run, params, state0
+
+    # launch.train at SMOKE: checkpoints, restore, a resume from step 200, generation
+    e2e = TRAIN["e2e"]
+    with tempfile.TemporaryDirectory() as tmp:
+        first, second = os.path.join(tmp, "run"), os.path.join(tmp, "resume")
+        kw = dict(smoke=True, steps=e2e["steps"], batch=e2e["batch"], seq=e2e["seq"], ckpt_every=e2e["ckpt_every"],
+                  lr=e2e["lr"], log_every=100, device=DEVICE)
+        t = time.perf_counter()
+        out = train_launch.run(TRAIN["arch"], ckpt_dir=first, **kw)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t
+        step, restored = manager.restore(first)
+        same = all(np.array_equal(a, bb) for a, bb in zip(
+            opt.tree_leaves(restored["params"]), opt.tree_leaves(reference_layout(out["params"]))))
+        at = f"step_{e2e['resume']:08d}"
+        os.makedirs(second)
+        shutil.copytree(os.path.join(first, at), os.path.join(second, at))
+        again = train_launch.run(TRAIN["arch"], ckpt_dir=second, **kw)
+        torch.cuda.synchronize()
+    gap = float(np.max(np.abs(np.array(again["history"]) - np.array(out["history"][e2e["resume"]:]))))
+    print(f"  launch.train.run({TRAIN['arch']} SMOKE, {e2e['steps']} steps, batch {e2e['batch']} × seq {e2e['seq']}, "
+          f"lr {e2e['lr']}): {e2e_s:.1f} s, first loss {out['first_loss']:.4f}, final loss {out['final_loss']:.4f}; "
+          f"restore of step {step} equals the run's params: {same}; resume from step {e2e['resume']}: "
+          f"max |loss d| over steps {e2e['resume']}–{e2e['steps'] - 1} {gap:.3g} (bound {TRAIN_TOL['resume']})")
+    if not out["final_loss"] < out["first_loss"] - 1.0:
+        problems.append(f"SMOKE training loss {out['first_loss']} → {out['final_loss']}, not down by 1.0")
+    if step != e2e["steps"] or not same:
+        problems.append(f"restore gave step {step}, params equal {same}")
+    if not gap <= TRAIN_TOL["resume"] or len(again["history"]) != e2e["steps"] - e2e["resume"]:
+        problems.append(f"resumed losses differ by {gap}")
+    scfg = configs.get_config(TRAIN["arch"], smoke=True)
+    corpus = pipeline.ByteCorpus(vocab=scfg.vocab)
+    prompts = corpus.batch(seed=1, step=0, batch=2, seq=15)
+    eng = Engine(registry.build(scfg), out["params"], batch=2, max_seq=64, device=DEVICE)
+    toks = eng.generate(prompts, e2e["tokens"], SamplerConfig(temperature=0.0))
+    for p, row in zip(prompts, toks):
+        print(f"    {bytes(p.tolist())!r} → {bytes(row.tolist())!r}")
+    if toks.shape != (2, e2e["tokens"]) or toks.min() < 0 or toks.max() >= scfg.vocab:
+        problems.append(f"generation from the trained params gave {toks.shape} tokens")
+    torch.cuda.synchronize()
+    paths["3j training"] = launched = read_launches()
+    if any(launched.values()):
+        problems.append(f"the training path launched FHE kernels: {launched}")
+    if problems:
+        print("FAILED training: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    return 0
+
+
 def rand_residues(shape, primes, gen) -> torch.Tensor:
     q = torch.tensor(primes, dtype=torch.int64, device=DEVICE)[:, None]
     x = torch.randint(0, 1 << 31, shape, generator=gen, device=DEVICE, dtype=torch.int64)
@@ -1720,6 +2043,10 @@ def main() -> int:
 
     # -- 3i. the LLM serving path ----------------------------------------------
     if phase_3i(paths, reset_launches, read_launches, smi):
+        return 1
+
+    # -- 3j. the training path ---------------------------------------------------
+    if phase_3j(paths, reset_launches, read_launches, smi):
         return 1
 
     # -- 4. report ---------------------------------------------------------------

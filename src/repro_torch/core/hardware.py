@@ -158,3 +158,16 @@ def swift_logic_fraction(node: str = "14nm") -> float:
     col = 0 if node == "7nm" else 1
     return AREA_TABLE_MM2["swift_clusters_total"][col] / AREA_TABLE_MM2["total"][col]
 
+
+# ---------------------------------------------------------------------------
+# H100 roofline constants (the port's runtime target: one H100 SXM5 80 GB)
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 Tensor Core GPU datasheet, SXM5 column, at the 700 W power
+# limit.  Dense rates: the datasheet's sparse figures are twice these.
+H100_PEAK_FLOPS_BF16 = 989e12  # FLOP/s per card, bf16 tensor cores, dense; a multiply-add counts 2
+H100_HBM_BPS = 3.35e12  # bytes/s per card, HBM3 (chip_smoke.PEAK_BYTES_PER_S)
+# NVLink 4: 900 GB/s per card over 18 links, counting both directions; one
+# link carries 25 GB/s each way.  The roofline's collective term divides by
+# one link's rate in one direction, as the reference's ICI figure is per link.
+H100_NVLINK_BPS = 25e9  # bytes/s per link, per direction

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -68,6 +69,9 @@ class ParamTree(nn.Module):
 
     def get(self, k, default=None):
         return self[k] if k in self else default
+
+    def keys(self) -> list[str]:
+        return [*self._parameters, *self._modules]
 
     @property
     def device(self) -> torch.device:
@@ -255,10 +259,17 @@ def block_forward(cfg: ModelConfig, p_block, x, positions):
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(cfg: ModelConfig, params, x, positions):
-    """Embeddings → blocks → final norm (returns hidden states)."""
+def forward_hidden(cfg: ModelConfig, params, x, positions, remat: bool = True):
+    """Embeddings → blocks → final norm (returns hidden states).
+
+    With ``remat`` and autograd on, each block is checkpointed at its
+    boundary (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``): the backward pass recomputes the block's inside."""
     for p_block in params["blocks"]:
-        x = block_forward(cfg, p_block, x, positions)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block_forward, cfg, p_block, x, positions, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block_forward(cfg, p_block, x, positions)
     return L.rmsnorm(x, params["final_ln"].to(x.dtype))
 
 

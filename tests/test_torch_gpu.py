@@ -345,3 +345,88 @@ def test_smoke_llm_on_the_card_matches_the_cpu(card, arch):
     for ref, got, t in ((cc, cg, ties[:, :-1]), (cc2, cg2, ties)):
         res = cs.compare_caches(cfg, ref, got, t)
         assert all(v[2] for v in res.values()), res
+
+
+def _smoke_train_batch(cfg, device):
+    cs = _chip_smoke()
+    batch = cs.smoke_inputs(cfg, 2, 49)
+    batch.pop("token")
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "phi-3-vision-4.2b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
+                                  "mamba2-1.3b", "smollm-135m", "granite-20b", "qwen1.5-110b", "phi3-medium-14b",
+                                  "whisper-medium"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One AdamW step of each arch at SMOKE size on the card against the
+    port's CPU path at the same weights: loss and gradient norm within
+    ``chip_smoke.SMOKE_TRAIN_TOL``, every gradient finite, the state on the
+    card; the dense archs' updates within ``chip_smoke.TRAIN_TOL`` as
+    ``update_gap`` reads them, and AdamW's second step alone within
+    update_lr·lr (the MoE archs' router near-ties move whole tokens'
+    gradients, ROADMAP Queue 3)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+
+    cs = _chip_smoke()
+    cfg = configs.get_config(arch, smoke=True)
+    api = registry.build(cfg)
+    cpu = api.init_params(0, device="cpu")
+    batch = {k: v.numpy() for k, v in _smoke_train_batch(cfg, "cpu").items()}
+    acfg = opt.AdamWConfig(**cs.TRAIN_ACFG)
+    c, g = (cs.train_once(api, acfg, p, batch) for p in (cpu, copy.deepcopy(cpu).to(card)))
+    assert abs(g["loss"] - c["loss"]) <= cs.SMOKE_TRAIN_TOL["loss"]
+    assert abs(g["grad_norm"] - c["grad_norm"]) <= cs.SMOKE_TRAIN_TOL["grad_norm_rel"] * c["grad_norm"]
+    assert all(bool(torch.isfinite(x).all()) and x.device.type == "cuda" for x in opt.tree_leaves(g["grads"]))
+    assert all(x.device.type == "cuda" for x in opt.tree_leaves(g["params"]))
+    if not cfg.is_moe:
+        leaves = opt.tree_leaves
+        up = cs.update_gap(leaves(cpu), leaves(c["params"]), leaves(g["params"]), leaves(c["grads"]),
+                           float(opt.lr_at(acfg, 0)))
+        assert up["kept"] <= cs.TRAIN_TOL["update_lr"] and up["all"] <= cs.TRAIN_TOL["params_lr"], up
+        assert cs.second_step_gap(acfg, c, 0) <= cs.TRAIN_TOL["update_lr"]
+
+
+def test_train_step_backward_runs_at_reference_precision(card):
+    """The train step's backward runs inside ``layers.reference_precision()``:
+    with cuBLAS allowed bf16-reduced reductions and TF32 for the process, its
+    gradients equal those of a process that allows neither, bit for bit; a
+    backward called outside the context gives other gradients."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = configs.get_config("smollm-135m", smoke=True)
+    api = registry.build(cfg)
+    params = api.init_params(0, device=card)
+    batch = _smoke_train_batch(cfg, card)
+    m = torch.backends.cuda.matmul
+    saved = m.allow_bf16_reduced_precision_reduction, m.allow_tf32
+    try:
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = False, False
+        strict = opt.tree_leaves(ts.loss_and_grads(api, params, batch)[1])
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = True, True
+        guarded = opt.tree_leaves(ts.loss_and_grads(api, params, batch)[1])
+        loose = torch.autograd.grad(api.train_loss(params, **batch), opt.tree_leaves(params))
+    finally:
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = saved
+    assert all(torch.equal(a, b) for a, b in zip(strict, guarded))
+    assert not all(torch.equal(a, b) for a, b in zip(strict, loose))
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 4097, 589_824])
+def test_quantize_on_the_card_equals_the_cpu(card, n):
+    from repro_torch.training import compress
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32) * 3)
+    q, s = compress.quantize(x.to(card))
+    qc, sc = compress.quantize(x)
+    assert q.device.type == "cuda" and torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    back = compress.dequantize(q, s, x.shape, x.dtype)
+    assert torch.equal(back.cpu(), compress.dequantize(qc, sc, x.shape, x.dtype))
+    shared = sc * 2
+    assert torch.equal(compress.quantize(x.to(card), shared.to(card))[0].cpu(), compress.quantize(x, shared)[0])
