@@ -93,6 +93,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            ``launch.train.run`` at SMOKE for 300 steps with a checkpoint every
            100, a restore, a resume from step 200 against the uninterrupted
            losses, and 48 greedy tokens from the trained params;
+       3k. sharding (``repro_torch.distributed``, ``launch.mesh``,
+           ``launch.dryrun``), which launches none of the kernels above:
+           ``smollm-135m`` at full width, two train steps at 16 × 512 by
+           ``jit_train_step`` on a 1×1 NCCL mesh (params, moments and batch as
+           DTensors) against ``build_train_step(mesh=None)``, bit for bit, and
+           ms a step of both; the multi-job step lowered on an 8-affiliation
+           fake ("aff",) mesh, its graph run on each job's inputs on the card
+           against ``EXECUTOR``'s digests; and, after every timed phase, the
+           dry-run cells of ``DRYRUN`` in processes of their own, each on the
+           fake mesh with device type "cuda" against "cpu";
   4. print one JSON line of per-kernel numbers, then the result line.
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
@@ -102,6 +112,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1145,7 +1156,6 @@ def phase_3j(paths, reset_launches, read_launches, smi) -> int:
     int8 compression.  Arguments as ``phase_3i``'s.  Returns 0, or 1 after
     printing what failed."""
     import copy
-    import os
     import shutil
     import tempfile
 
@@ -1340,6 +1350,218 @@ def phase_3j(paths, reset_launches, read_launches, smi) -> int:
     return 0
 
 
+# Phase 3k: sharding, meshes, the sharded train step and the dry-run.  The
+# sharded step runs TRAIN's speed shape (16 × 512, remat) for two steps from
+# 3j's weights (LLM["seed"]) on a one-rank NCCL mesh; a 1×1 mesh's local
+# shards are the whole tensors, so it must equal the plain step bit for bit.
+SHARDED = dict(arch="smollm-135m", batch=(16, 512), steps=2, iters=3, warmup=1)
+# The dry-run cells, one process each, started in 3k after its last timed
+# step so that no timed phase shares the host's cores with them: smollm-135m
+# at train_4k on the fake 16×16 and 2×16×16 meshes (multi_pod False, True)
+# at full depth, each with the mesh on device type "cuda" and on "cpu";
+# without the dry-run's MemTracker pass, which would double each cell's time
+# (the sweep, tools/dryrun_sweep.sh, measures the peak bytes).
+DRYRUN = dict(arch="smollm-135m", shape="train_4k", multi_pods=(False, True), device_types=("cuda", "cpu"),
+              timeout=600)
+DRYRUN_WORKER = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+arch, shape, multi_pod, device_type, out = sys.argv[1:6]
+t = time.perf_counter()
+rec = dryrun.lower_cell(arch, shape, multi_pod == "1", device_type=device_type, memory=False)
+rec["wall_s"] = time.perf_counter() - t
+with open(out, "w") as f:
+    json.dump(rec, f)
+"""
+# the keys of a dry-run record that the card's cell and the CPU's must share
+DRYRUN_SAME = ("flops", "model_flops", "hbm_bytes", "collectives", "coll_bytes_total", "roofline", "chips")
+
+
+def start_dryrun_cells() -> list:
+    """One process per (cell, device type) of ``DRYRUN``; each writes its
+    record to build/dryrun_3k/ and its log beside it."""
+    out = ROOT / "build" / "dryrun_3k"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cells = []
+    for multi_pod in DRYRUN["multi_pods"]:
+        for device_type in DRYRUN["device_types"]:
+            tag = f"{DRYRUN['arch']}_{DRYRUN['shape']}_{'pod2' if multi_pod else 'pod1'}_{device_type}"
+            log = open(out / f"{tag}.log", "w")
+            proc = subprocess.Popen([sys.executable, "-c", DRYRUN_WORKER, DRYRUN["arch"], DRYRUN["shape"],
+                                     "1" if multi_pod else "0", device_type, str(out / f"{tag}.json")],
+                                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+            cells.append(dict(tag=tag, multi_pod=multi_pod, device_type=device_type, proc=proc,
+                              log=log, path=out / f"{tag}.json", started=time.perf_counter()))
+    return cells
+
+
+def stop_dryrun_cells(cells: list) -> None:
+    for c in cells:
+        if c["proc"].poll() is None:
+            c["proc"].kill()
+            c["proc"].wait()
+        c["log"].close()
+
+
+def phase_3k(paths, reset_launches, read_launches, smi, matmul_keys) -> int:
+    """Phase 3k: the sharded train step of smollm-135m at full width on a 1×1
+    NCCL mesh against the plain step (two steps, every weight and moment),
+    the multi-job step lowered on an 8-affiliation fake mesh, its graph run
+    on the card against ``EXECUTOR``'s digests, and then the dry-run cells of
+    ``DRYRUN`` (card against CPU).  Arguments as ``phase_3i``'s, plus the
+    keys of ``EXECUTOR["preset"]``.  Returns 0, or 1 after printing what
+    failed."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import executor as E
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.fhe import keys as K
+    from repro_torch.fhe import ops as fhe_ops
+    from repro_torch.fhe import params as P
+    from repro_torch.fhe.context import ExecPolicy, FheContext
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    problems = []
+    # the lowered multi-job step's inputs, encrypted before the counts are
+    # set to 0: encryption launches the FHE kernels, the path below none
+    fhe_p = P.workload_params(EXECUTOR["preset"])
+    ctx = FheContext(params=fhe_p, keys=matmul_keys, policy=ExecPolicy(backend="ref"), device=DEVICE)
+    pairs = executor_pairs(ctx)
+    torch.cuda.synchronize()
+    reset_launches()
+
+    # -- the sharded step at full width on a one-rank NCCL mesh --------------
+    cfg = configs.get_config(SHARDED["arch"])
+    api = registry.build(cfg)
+    acfg = opt.AdamWConfig(**TRAIN_ACFG)
+    params = params_from_reference(cfg, llm_reference_tree(cfg, LLM["seed"]), device=DEVICE)
+    b, s = SHARDED["batch"]
+    batches = [{"tokens": torch.as_tensor(pipeline.synthetic_lm_batch(LLM["seed"], i, b, s, cfg.vocab), device=DEVICE)}
+               for i in range(SHARDED["steps"])]
+    mesh = single_device_mesh(DEVICE)
+    try:
+        spec = {k: v[1] for k, v in api.input_specs("train_4k", mesh).items()}
+        steps = {"plain": ts.build_train_step(api, None, acfg), "sharded": ts.jit_train_step(api, mesh, acfg, spec)}
+        runs = {}
+        for name, step in steps.items():
+            p, st, metrics = params, opt.init_state(params), []
+            for batch in batches:
+                p, st, m = step(p, st, batch)
+                metrics.append({k: float(v.full_tensor() if sh.is_dtensor(v) else v) for k, v in m.items()})
+            runs[name] = dict(params=p, state=st, metrics=metrics)
+        torch.cuda.synchronize()
+        local = lambda x: x.to_local() if sh.is_dtensor(x) else x
+        pl, sd = runs["plain"], runs["sharded"]
+        placed = [sh.is_dtensor(x) and x.device_mesh is mesh for x in opt.tree_leaves(sd["params"])]
+        gaps = {}
+        for what in ("params", "m", "v"):
+            a = opt.tree_leaves(pl["params"] if what == "params" else pl["state"][what])
+            g = opt.tree_leaves(sd["params"] if what == "params" else sd["state"][what])
+            gaps[what] = max(float((x.detach().float() - local(y).detach().float()).abs().max()) for x, y in zip(a, g))
+            gaps[what + " bit-equal"] = all(torch.equal(x.detach(), local(y).detach()) for x, y in zip(a, g))
+        same_metrics = all(pm[k] == sm[k] for pm, sm in zip(pl["metrics"], sd["metrics"]) for k in ("loss", "grad_norm"))
+        print(f"{cfg.arch_id} at full width ({cfg.param_count() / 1e6:.1f} M parameters), {SHARDED['steps']} train "
+              f"steps at {b} × {s} (remat), jit_train_step on a 1×1 NCCL mesh (params, moments and batch as DTensors "
+              f"by the specs: {sum(placed)} of {len(placed)} leaves) against build_train_step(mesh=None):")
+        for i, (pm, sm) in enumerate(zip(pl["metrics"], sd["metrics"])):
+            print(f"  step {i + 1}: loss {sm['loss']:.6f} vs {pm['loss']:.6f}, grad_norm {sm['grad_norm']:.6f} vs "
+                  f"{pm['grad_norm']:.6f}")
+        print("  after the last step, max |Δ| " + ", ".join(f"{k} {v}" for k, v in gaps.items()))
+        if not (all(placed) and same_metrics and gaps["params bit-equal"] and gaps["m bit-equal"]
+                and gaps["v bit-equal"]):
+            problems.append(f"sharded step on a 1×1 mesh differs from the plain step: metrics equal {same_metrics}, "
+                            f"gaps {gaps}, DTensor leaves {sum(placed)}/{len(placed)}")
+        del runs, pl, sd
+        ms = {}
+        for name, step in steps.items():
+            run = {"p": params, "s": opt.init_state(params)}
+
+            def one(step=step, run=run):
+                run["p"], run["s"], _ = step(run["p"], run["s"], batches[0])
+
+            ms[name] = time_ms(one, iters=SHARDED["iters"], warmup=SHARDED["warmup"])
+            del run
+        print(f"  on {smi}: {ms['sharded']:.3f} ms a step sharded, {ms['plain']:.3f} ms plain (CUDA events over "
+              f"{SHARDED['iters']} steps after {SHARDED['warmup']}, host included): DTensor's dispatch costs "
+              f"{ms['sharded'] - ms['plain']:.3f} ms a step")
+    finally:
+        dist.destroy_process_group()
+    del params, batches
+
+    # -- the lowered multi-job step -----------------------------------------------
+    aff = E.affiliation_mesh(EXECUTOR["affiliations"], torch.device(DEVICE).type, fake=True)
+    try:
+        t = time.perf_counter()
+        gm, counts = E.lower_multi_job_step(fhe_p, K.full_keyset(fhe_p, seed=0, device="cpu"), aff, jobs_per_aff=1)
+        lower_s = time.perf_counter() - t
+        gm = E.place_graph(gm, DEVICE)
+        got = []
+        for a, bb in pairs:  # one affiliation's real inputs at a time: its one job
+            c0, c1 = gm(a.c0[None], a.c1[None], bb.c0[None], bb.c1[None])
+            got.append(digest(fhe_ops.Ciphertext(c0[0], c1[0], a.level - 1, a.scale)))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    print(f"  lower_multi_job_step at {EXECUTOR['preset']} on an {aff.size()}-affiliation fake ('aff',) mesh (CPU "
+          f"keys, keygen included): {lower_s:.2f} s, {sum(counts.values())} graph ops ({len(counts)} kinds); its graph "
+          f"placed on {DEVICE}, on each job's inputs: digests equal EXECUTOR's "
+          f"{sum(g == w for g, w in zip(got, EXECUTOR['digests']))}/{len(got)}")
+    if got != list(EXECUTOR["digests"]):
+        problems.append(f"lowered multi-job step digests {got} != {EXECUTOR['digests']}")
+
+    # -- the dry-run cells, card against CPU, after the last timed step ----------
+    cells = start_dryrun_cells()
+    try:
+        t = time.perf_counter()
+        recs = {}
+        for c in cells:
+            left = DRYRUN["timeout"] - (time.perf_counter() - c["started"])
+            try:
+                rc = c["proc"].wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            c["log"].flush()
+            if rc != 0 or not c["path"].exists():
+                tail = c["path"].with_suffix(".log").read_text()[-1500:]
+                problems.append(f"dry-run cell {c['tag']} exit {rc}: {tail}")
+                continue
+            recs[c["tag"]] = rec = json.loads(c["path"].read_text())
+            r = rec["roofline"]
+            print(f"  dry-run {c['tag']}: {rec['status']} in {rec['wall_s']:.1f} s ({rec['lower_s']} s the step), "
+                  f"flops {rec['flops']:.6g} (model {rec['model_flops']:.6g}, useful {rec['useful_flops_ratio']:.4f}), "
+                  f"collectives {rec['collectives']['count']} = {rec['coll_bytes_total']:.6g} B over {rec['chips']} "
+                  f"ranks, roofline compute {r['compute_s']:.3e} s, memory {r['memory_s']:.3e} s, collective "
+                  f"{r['collective_s']:.3e} s ({r['dominant']}), memory {rec['memory']}")
+        print(f"  waited {time.perf_counter() - t:.1f} s for the {len(cells)} dry-run processes")
+    finally:
+        stop_dryrun_cells(cells)
+    for multi_pod in DRYRUN["multi_pods"]:
+        pair = [recs.get(c["tag"]) for c in cells if c["multi_pod"] == multi_pod]
+        if None in pair or len(pair) != 2:
+            continue
+        card, cpu = pair
+        diff = [k for k in DRYRUN_SAME if card[k] != cpu[k]]
+        if diff or card["memory"]["argument_bytes"] != cpu["memory"]["argument_bytes"] or card["status"] != "ok":
+            problems.append(f"dry-run cell multi_pod {multi_pod}: card and CPU differ in {diff}")
+
+    paths["3k sharding"] = launched = read_launches()
+    if any(launched.values()):
+        problems.append(f"the sharding path launched FHE kernels: {launched}")
+    if problems:
+        print("FAILED sharding: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    return 0
+
+
 def rand_residues(shape, primes, gen) -> torch.Tensor:
     q = torch.tensor(primes, dtype=torch.int64, device=DEVICE)[:, None]
     x = torch.randint(0, 1 << 31, shape, generator=gen, device=DEVICE, dtype=torch.int64)
@@ -1354,6 +1576,11 @@ def main() -> int:
         print("chip_smoke: run it from a checkout that holds src/repro_torch", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    return phases()
+
+
+def phases() -> int:
+    """Phases 1–4."""
     from repro_torch.core import executor as E
     from repro_torch.fhe import keys as K
     from repro_torch.fhe import keyswitch, linear
@@ -2047,6 +2274,10 @@ def main() -> int:
 
     # -- 3j. the training path ---------------------------------------------------
     if phase_3j(paths, reset_launches, read_launches, smi):
+        return 1
+
+    # -- 3k. sharding: the sharded step, the dry-run, the lowered multi-job step ---
+    if phase_3k(paths, reset_launches, read_launches, smi, keysets[EXECUTOR["preset"]]):
         return 1
 
     # -- 4. report ---------------------------------------------------------------

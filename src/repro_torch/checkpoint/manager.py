@@ -16,8 +16,9 @@ lists are stacked on a leading axis (``models.convert.reference_layout``),
 so the port and the reference restore each other's checkpoints.  The
 manifest is MessagePack, written and read by the small codec below (str,
 int, list and str-keyed map: the manifest's types), byte for byte what
-``msgpack.packb`` writes.  Restoring onto a sharded placement is not ported
-yet: ``restore`` gives numpy arrays, or plain tensors on ``device``.
+``msgpack.packb`` writes.  ``restore`` gives numpy arrays, plain tensors on
+``device``, or DTensors placed by ``shardings`` (elastic restore: the saved
+arrays are global, so any mesh can take them).
 """
 
 from __future__ import annotations
@@ -176,9 +177,13 @@ def latest_step(ckpt_dir: str) -> int | None:
     return best
 
 
-def restore(ckpt_dir: str, step: int | None = None, device=None):
+def restore(ckpt_dir: str, step: int | None = None, shardings=None, device=None):
     """Load a checkpoint: (step, tree of numpy arrays), or of tensors on
-    ``device`` if given."""
+    ``device`` if given.  ``shardings`` maps paths of the saved tree to
+    (mesh, placements) pairs (``sharding.named``): as a tree of the saved
+    structure, or flat ({"params/embed": ...}); each such array becomes a
+    DTensor with those placements on the mesh's device type, the rest stay
+    as ``device`` says."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -190,7 +195,13 @@ def restore(ckpt_dir: str, step: int | None = None, device=None):
         manifest = unpackb(f.read())
     with np.load(os.path.join(d, "shard_0.npz")) as z:
         flat = {k: z[k] for k in manifest["keys"]}
+    placed = _flatten(shardings) if shardings is not None else {}
     if device is not None:
         dev = resolve_device(device)
-        flat = {k: torch.from_numpy(v).to(dev) for k, v in flat.items()}
+        flat = {k: v if k in placed else torch.from_numpy(v).to(dev) for k, v in flat.items()}
+    for k, (mesh, placements) in placed.items():
+        from torch.distributed.tensor import distribute_tensor
+
+        whole = torch.from_numpy(flat[k]).to(resolve_device(mesh.device_type))
+        flat[k] = distribute_tensor(whole, mesh, list(placements), src_data_rank=None)
     return manifest["step"], _unflatten(flat)

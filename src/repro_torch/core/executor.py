@@ -22,12 +22,19 @@ Stream hazards, and what this module does about each:
     each output is recorded on the caller's stream, so the caching allocator
     hands out no output's block again while the caller may still read it.
 
-The reference's ``lower_multi_job_step``, a JAX lowering dry run, has no
-counterpart here.
+``affiliation_mesh`` and ``lower_multi_job_step`` are the reference's
+lowering dry run: one affiliation's body (its jobs' ``ctx.mul`` under the
+reference's "ref" backend) traced by ``make_fx`` on fake inputs, the local
+shard of the ("aff",)-sharded stacked jobs, into a ``GraphModule`` without
+running it.  It is traced on the CPU, where "ref" runs the plain versions
+(aten operations a trace records; a card's kernels launch through ctypes,
+which it cannot); ``place_graph`` moves the graph to a card, where it runs
+on real inputs and launches none of the Hopper kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import numpy as np
@@ -120,3 +127,65 @@ def parallel_shallow_mul(
             out.c1.record_stream(caller)
     out_scale = scale * scale / float(params.q_primes[level])
     return [ops.Ciphertext(o.c0, o.c1, level - 1, out_scale) for o in outs]
+
+
+def affiliation_mesh(n_groups: int = N_AFFILIATIONS, device_type: str = "cuda", *, fake: bool = False):
+    """1-D ("aff",) ``DeviceMesh``: one rank per affiliation, over the running
+    process group, or with ``fake`` over a fake one of ``n_groups`` ranks
+    (``launch.mesh.make_mesh``): the lowering reads only its names and size."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((n_groups,), ("aff",), device_type, fake=fake)
+
+
+def lower_multi_job_step(params: CkksParams, keys: KeySet, mesh, jobs_per_aff: int = 1):
+    """Lower (without executing) the multi-job step for dry-run analysis:
+    one affiliation's body — ``ctx.mul`` (rescale included) of each of its
+    ``jobs_per_aff`` jobs at the top level, backend "ref" — traced by
+    ``make_fx`` on fake (jobs_per_aff, L+1, n) int32 residues on the keys'
+    device, the local shard of the four ("aff",)-sharded
+    (mesh.size()·jobs_per_aff, L+1, n) inputs a0, a1, b0, b1.
+
+    Returns (GraphModule, {op: count}); the module maps (a0, a1, b0, b1) to
+    the stacked (c0, c1) of the jobs.  The keys and the device tables are
+    constants of the graph.  ``keys`` live on the CPU (see the module's
+    docstring)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    if tuple(mesh.mesh_dim_names) != ("aff",):
+        raise ValueError(f"the multi-job step lowers over an ('aff',) mesh, not {mesh.mesh_dim_names}")
+    device = keys.rlk.k.device
+    if device.type != "cpu":
+        raise ValueError(f"lower the multi-job step on CPU keys, not {device}; place_graph moves the graph")
+    level, scale = params.L, params.scale
+    ctx = FheContext(params=params, keys=keys, policy=ExecPolicy(backend="ref"), device=device)
+
+    def body(a0s, a1s, b0s, b1s):
+        outs0, outs1 = [], []
+        for j in range(a0s.shape[0]):
+            out = ctx.mul(ops.Ciphertext(a0s[j], a1s[j], level, scale), ops.Ciphertext(b0s[j], b1s[j], level, scale),
+                          rescale_after=True)
+            outs0.append(out.c0)
+            outs1.append(out.c1)
+        return torch.stack(outs0), torch.stack(outs1)
+
+    # one eager job on zeros first: it builds (or finds) every table the body
+    # reads, so the trace finds them all cached and caches no fake tensor
+    body(*[torch.zeros((1, level + 1, params.n), dtype=torch.int32, device=device)] * 4)
+    shape = (jobs_per_aff, level + 1, params.n)
+    local = [torch.empty(shape, dtype=torch.int32, device=device) for _ in range(4)]
+    gm = make_fx(body, tracing_mode="fake", _allow_non_fake_inputs=True)(*local)
+    counts = collections.Counter(str(n.target) for n in gm.graph.nodes if n.op == "call_function")
+    return gm, dict(counts)
+
+
+def place_graph(gm, device):
+    """``gm`` (``lower_multi_job_step``'s graph) on ``device``: its constants
+    moved there, and every operation that makes a tensor on the CPU makes it
+    there instead."""
+    dev = torch.device(device)
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and isinstance(node.kwargs.get("device"), torch.device):
+            node.kwargs = {**node.kwargs, "device": dev}
+    gm.recompile()
+    return gm.to(dev)

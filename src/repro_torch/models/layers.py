@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
+
 BF16 = torch.bfloat16
 F32 = torch.float32
 
@@ -208,42 +210,70 @@ def moe_ffn(x, router_w, w1, w2, w3, *, top_k: int, capacity_factor: float = 1.2
     x: (T, d); router_w: (d, E); w1/w3: (E, d, f); w2: (E, f, d).
     Each token's k expert outputs are gathered back and summed in a fixed
     order, so two runs on a CUDA card give the same bytes.
+
+    On DTensors (``sharding.TokenRows``' rule) each rank routes its own
+    tokens with the one-device capacity positions, dispatches their entries
+    for its own experts, and combines its tokens from them; the expert
+    products run on the expert-sharded weights.  There the returned router
+    probabilities carry no gradient (the model reads none).
     """
-    t, d = x.shape
+    shared_x = x
+    rows = sh.TokenRows(x, w1) if sh.is_dtensor(x) else None
+    if rows is None:
+        # the routed uses read x through one node on both paths: x's gradient
+        # is then (routed sum) + shared, grouped alike on one device and on a
+        # mesh (bit-equal on a one-rank mesh)
+        x, router, t = x.view_as(x), router_w, x.shape[0]
+    else:
+        x, router, t = rows.local(x), rows.weight(router_w), rows.n
+    tl, d = x.shape  # this rank's tokens (all t on one device)
     e = router_w.shape[1]
-    logits = x.to(F32) @ router_w.to(F32)
+    logits = x.to(F32) @ router.to(F32)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, top_k, dim=-1)  # (T, k)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
 
     cap = int(capacity_factor * top_k * t / e) + 1
     flat_e = idx.reshape(-1)  # (T·k,)
-    flat_tok = torch.arange(t, device=x.device).repeat_interleave(top_k)
+    flat_tok = torch.arange(tl, device=x.device).repeat_interleave(top_k)
     flat_gate = gate.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se, st, sg = flat_e[order], flat_tok[order], flat_gate[order]
-    counts = torch.bincount(se, minlength=e)
+    # bincount's length depends on the data; a fixed-length count runs under FakeTensorMode too
+    counts = torch.zeros(e, dtype=se.dtype, device=se.device).index_add_(0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(t * top_k, device=x.device) - starts[se]
+    pos = torch.arange(tl * top_k, device=x.device) - starts[se]
+    earlier = rows.before(counts) if rows is not None else None
+    if earlier is not None:  # the same expert's entries of the tokens before this rank's
+        pos = pos + earlier[se]
     keep = pos < cap
+    if rows is not None:  # this rank's experts only: the others' entries land in a spill row too
+        keep = keep & (se >= rows.e0) & (se < rows.e0 + rows.ne)
+        se = torch.where(keep, se - rows.e0, 0)
     pos_c = torch.where(keep, pos, cap)  # dropped tokens land in a spill row
 
     # the spill row is written with zeros, so its bytes do not depend on which
     # of the colliding writes lands last; it is multiplied by keep = 0 below
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((rows.ne if rows is not None else e, cap + 1, d), dtype=x.dtype, device=x.device)
     buf[se, pos_c] = torch.where(keep[:, None], x[st], torch.zeros((), dtype=x.dtype, device=x.device))
+    if rows is not None:
+        buf = rows.summed(buf)
     h = torch.einsum("ecd,edf->ecf", buf, w1.to(x.dtype))
     if w3 is not None:
         h = F.silu(h) * torch.einsum("ecd,edf->ecf", buf, w3.to(x.dtype))
     else:
         h = gelu(h)
     eo = torch.einsum("ecf,efd->ecd", h, w2.to(x.dtype))
+    if rows is not None:
+        eo = rows.whole(eo)
 
     contrib = eo[se, pos_c] * (sg * keep)[:, None].to(x.dtype)
     # back to (token, slot) order, then each token's k contributions summed
-    out = contrib[torch.argsort(order)].reshape(t, top_k, d).sum(dim=1)
+    out = contrib[torch.argsort(order)].reshape(tl, top_k, d).sum(dim=1)
+    if rows is not None:
+        out, probs = rows.place(out), rows.place_rows(probs.detach())
     if n_shared:
-        out = out + ffn(x, sw1.to(x.dtype), sw2.to(x.dtype), sw3.to(x.dtype), act="swiglu")
+        out = out + ffn(shared_x, sw1.to(x.dtype), sw2.to(x.dtype), sw3.to(x.dtype), act="swiglu")
     return out, probs
 
 
@@ -263,10 +293,10 @@ def ssd_chunked(xh, dt, a_log, b_in, c_in, d_skip, *, chunk: int = 128, h0=None)
     ns = b_in.shape[-1]
     nc = -(-s // chunk)
     pad = nc * chunk - s
-    xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-    dt = F.pad(dt, (0, 0, 0, pad))
-    b_in = F.pad(b_in, (0, 0, 0, pad))
-    c_in = F.pad(c_in, (0, 0, 0, pad))
+    xh = sh.pad(xh, (0, 0, 0, 0, 0, pad))
+    dt = sh.pad(dt, (0, 0, 0, pad))
+    b_in = sh.pad(b_in, (0, 0, 0, pad))
+    c_in = sh.pad(c_in, (0, 0, 0, pad))
 
     # per-step log-decay: log a_t = −exp(A_log)·dt  (Mamba2 scalar-identity A)
     loga = -torch.exp(a_log.to(F32))[None, None] * dt  # (B, S', NH)
@@ -286,7 +316,7 @@ def ssd_chunked(xh, dt, a_log, b_in, c_in, d_skip, *, chunk: int = 128, h0=None)
     ys = []
     for j in range(nc):
         xcj, lcj, bcj, ccj = xc[:, j], lc[:, j], bc[:, j], cc[:, j]
-        cum = torch.cumsum(lcj, dim=1)  # (B, c, NH) inclusive
+        cum = sh.along(lambda z: torch.cumsum(z, dim=1), lcj, 1)  # (B, c, NH) inclusive
         total = cum[:, -1]  # (B, NH)
         # intra-chunk: y[i] += Σ_{j≤i} exp(cum_i − cum_j)·(c_i·b_j)·xdt_j
         li = cum[:, :, None, :] - cum[:, None, :, :]  # (B, ci, cj, NH)
@@ -323,7 +353,7 @@ def causal_conv1d(x, w, b=None, state=None):
     """
     k = w.shape[1]
     if state is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
+        xp = sh.pad(x, (0, 0, k - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     windows = torch.stack([xp[:, i: i + x.shape[1]] for i in range(k)], dim=-1)

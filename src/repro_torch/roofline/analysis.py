@@ -6,14 +6,20 @@
 
 The constants are the H100 SXM's (``core.hardware``).  ``collective_bytes``
 parses XLA HLO text (all-gather / all-reduce / reduce-scatter / all-to-all /
-collective-permute result sizes), as the reference does; the port's own
-source of collectives comes with its sharded steps.
+collective-permute result sizes), as the reference does.  The port's own
+source is ``CollectiveRecorder``, a dispatch mode that records every
+collective a torch program issues (DTensor's redistributions, the
+``torch.distributed`` calls of the int8 compression); ``collective_bytes_of``
+sums it as ``collective_bytes`` sums the HLO: result-shape bytes per kind.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.hardware import H100_HBM_BPS, H100_NVLINK_BPS, H100_PEAK_FLOPS_BF16
 
@@ -64,6 +70,65 @@ def collective_bytes(hlo_text: str) -> dict:
             continue
         out[base] += _shape_bytes(m.group(1))
         count[base] += 1
+    return {"bytes": out, "count": count, "total_bytes": sum(out.values())}
+
+
+# torch ops → the reference's collective kinds: the functional collectives
+# (``_c10d_functional``, DTensor's) and the in-place ``c10d`` ops of
+# ``torch.distributed``'s eager calls
+_TORCH_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce", "allreduce_": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all", "alltoall_": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute",
+}
+
+
+def _result_bytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(_result_bytes(o) for o in out)
+    return 0
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """Records (kind, result bytes) of every collective dispatched while it
+    is on.  DTensor operations pass through to DTensor first (the mode
+    answers ``NotImplemented`` to them), so the collectives they lower to are
+    what it sees, at each rank's local shapes — the per-device sizes that the
+    reference reads from the partitioned HLO.  For an eager in-place op the
+    result is the tensor it writes."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list[tuple[str, int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func.namespace in ("_c10d_functional", "c10d"):
+            kind = _TORCH_COLLECTIVES.get(func._opname)
+            if kind is not None:
+                result = out[0] if func.namespace == "c10d" and isinstance(out, tuple) else out
+                self.records.append((kind, _result_bytes(result)))
+        return out
+
+
+def collective_bytes_of(recorder: CollectiveRecorder) -> dict:
+    """``collective_bytes``' dict from what ``recorder`` saw."""
+    out = {k: 0 for k in _COLLECTIVES}
+    count = {k: 0 for k in _COLLECTIVES}
+    for kind, nbytes in recorder.records:
+        out[kind] += nbytes
+        count[kind] += 1
     return {"bytes": out, "count": count, "total_bytes": sum(out.values())}
 
 

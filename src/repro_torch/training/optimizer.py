@@ -2,7 +2,10 @@
 
 Moments are float32 trees in the parameters' structure and on their device,
 plain nested dicts and per-layer lists of tensors; ``step`` is an int32
-scalar tensor.  A tree is a ``ParamTree``, a dict, a per-layer list or a
+scalar tensor.  Moments share the parameters' specs (``state_specs``), so
+optimizer state is ZeRO-sharded wherever weights are FSDP-sharded: on DTensor
+leaves every element-wise update runs on the local shards, and
+``global_norm`` sums the shards' partial sums over the mesh.  A tree is a ``ParamTree``, a dict, a per-layer list or a
 tensor.  ``apply_updates`` is functional, as the
 reference's: it returns new tensors and leaves its inputs as they were.
 The schedule and the bias corrections are float32 tensor arithmetic, in the
@@ -98,6 +101,13 @@ def init_state(params) -> dict:
         "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def state_specs(param_specs) -> dict:
+    """Optimizer state specs mirror the parameters'."""
+    from repro_torch.distributed.sharding import Spec
+
+    return {"m": param_specs, "v": param_specs, "step": Spec()}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -4,7 +4,8 @@ Every test needs a CUDA card, ``nvcc`` and sm_90a (an H100): each skips inside
 the ``card`` fixture where there is none.  The last tests run the rotation
 slice, the n = 2^8 bootstrap, BGV at ``psi`` and the multi-job executor end
 to end on the card against the reference digests of ``chip_smoke.py``, and
-each LM arch at SMOKE size against the port's CPU path.  Run
+each LM arch at SMOKE size against the port's CPU path; then the sharded
+train step on a one-rank NCCL mesh and ``restore(shardings=)`` onto it.  Run
 them on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -430,3 +431,71 @@ def test_quantize_on_the_card_equals_the_cpu(card, n):
     assert torch.equal(back.cpu(), compress.dequantize(qc, sc, x.shape, x.dtype))
     shared = sc * 2
     assert torch.equal(compress.quantize(x.to(card), shared.to(card))[0].cpu(), compress.quantize(x, shared)[0])
+
+
+@pytest.fixture
+def nccl_mesh(card):
+    """A 1×1 ("data", "model") mesh over a one-rank NCCL group; ended after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = single_device_mesh("cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b"])
+def test_sharded_step_on_a_one_rank_nccl_mesh_equals_the_plain_step(nccl_mesh, arch):
+    """``jit_train_step`` on a 1×1 NCCL mesh (every leaf a DTensor whose local
+    shard is the whole tensor): two steps equal ``build_train_step(mesh=None)``
+    bit for bit, weights, moments, loss and gradient norm."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = configs.get_config(arch, smoke=True)
+    api = registry.build(cfg)
+    params = api.init_params(0, device="cuda")
+    acfg = opt.AdamWConfig(lr_peak=3e-3, warmup_steps=5, total_steps=40)
+    spec = {k: v[1] for k, v in api.input_specs("train_4k", nccl_mesh).items()}
+    batch = _smoke_train_batch(cfg, torch.device("cuda"))
+    out = {}
+    for name, step in (("plain", ts.build_train_step(api, None, acfg)),
+                       ("sharded", ts.jit_train_step(api, nccl_mesh, acfg, spec))):
+        p, s = params, opt.init_state(params)
+        metrics = []
+        for _ in range(2):
+            p, s, m = step(p, s, batch)
+            metrics.append([float(v.full_tensor() if sh.is_dtensor(v) else v) for v in m.values()])
+        out[name] = (opt.tree_leaves(p) + opt.tree_leaves(s), metrics)
+    local = lambda x: (x.to_local() if sh.is_dtensor(x) else x).detach()
+    assert out["plain"][1] == out["sharded"][1]
+    assert all(torch.equal(local(a), local(b)) for a, b in zip(out["plain"][0], out["sharded"][0]))
+    assert all(sh.is_dtensor(x) for x in out["sharded"][0])
+
+
+def test_restore_onto_dtensor_placements_on_the_card(nccl_mesh, tmp_path):
+    """``restore(shardings=)`` places each named array as a DTensor on the
+    mesh's card; the others follow ``device``."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.distributed import sharding as sh
+
+    tree = {"params": {"w": np.arange(24, dtype=np.float32).reshape(4, 6), "b": np.ones(3, np.float32)},
+            "step": np.int32(7)}
+    manager.save(str(tmp_path), 3, tree)
+    step, got = manager.restore(str(tmp_path), shardings={"params/w": sh.named(nccl_mesh, sh.Spec("data", "model"))},
+                                device="cuda")
+    w = got["params"]["w"]
+    # a 1×1 mesh's placements are Replicate(): a one-way shard is the whole tensor
+    assert step == 3 and sh.is_dtensor(w) and w.placements == (Replicate(), Replicate())
+    assert w.device.type == "cuda" and np.array_equal(w.full_tensor().cpu().numpy(), tree["params"]["w"])
+    assert not sh.is_dtensor(got["params"]["b"]) and got["params"]["b"].device.type == "cuda"
+    _, again = manager.restore(str(tmp_path), shardings={"params": {"b": (nccl_mesh, (Replicate(), Replicate()))}})
+    assert again["params"]["b"].placements == (Replicate(), Replicate()) and isinstance(again["params"]["w"], np.ndarray)

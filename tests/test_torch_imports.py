@@ -48,7 +48,8 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
                  "models.lm", "models.vlm", "models.whisper", "models.registry", "models.convert", "serving.engine",
                  "launch.serve", "data.pipeline", "configs", "configs.smollm_135m", "configs.whisper_medium",
                  "training.optimizer", "training.compress", "training.train_step", "checkpoint.failures",
-                 "checkpoint.manager", "roofline.memory_model", "roofline.analysis", "launch.train"):
+                 "checkpoint.manager", "roofline.memory_model", "roofline.analysis", "launch.train",
+                 "distributed.sharding", "launch.mesh", "launch.dryrun"):
         assert f"repro_torch.{name}" in imported, name
     assert report["smoke_main"]
     assert [m for m in report["modules"] if _forbidden(m)] == []
