@@ -68,7 +68,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            preset planned and priced, the obs smoke fleet traced and not, five
            serving scenarios), each against the reference's SHA-256 in
            ``SCHEDULING``, with its host time; the trace goes to
-           ``build/obs_trace.json``, the history rows to ``build/obs_history.json``;
+           ``build/obs_trace.json``;
        3i. the LLM serving path (``repro_torch.models``, ``serving``,
            ``launch``), which launches none of the kernels above:
            ``smollm-135m`` at full width (weights from a numpy seed in the
@@ -740,16 +740,8 @@ def phase_3h(kernels, paths, launches_of, lstm, mlp, psi, exact, mul, smi) -> in
     done = lambda res: sorted((je.job.job_id, je.completion) for je in res.jobs if je.completion is not None)
     if bare.makespan != fleet.makespan or done(bare) != done(fleet):
         problems.append("the untraced fleet run gave another timeline")
-    history = ROOT / "build" / "obs_history.json"
-    history.unlink(missing_ok=True)
-    for res in (fleet, bare):
-        obs.append_rows(str(history), [("obs.traced_fleet.makespan_mcycles", res.makespan / 1e6),
-                                       ("obs.traced_fleet.n_completed", float(len(done(res))))],
-                        commit="working-tree")
-    if obs.check_regression(obs.load_history(str(history))):
-        problems.append(f"history regressions {obs.check_regression(obs.load_history(str(history)))}")
     print(f"  obs smoke: {len(tracer.events)} trace events, {len(blob)} bytes, sha256 {sha[:16]}, "
-          f"written to {trace_out.relative_to(ROOT)}; history rows in {history.relative_to(ROOT)}")
+          f"written to {trace_out.relative_to(ROOT)}")
     for name, scenario in SERVING_SCENARIOS.items():
         t = time.perf_counter()
         summary, res = scenario(pkg)

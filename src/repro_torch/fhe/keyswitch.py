@@ -43,6 +43,7 @@ from repro_torch.kernels.fusedks import ops as fused_ops
 from repro_torch.kernels.hoistrot import ops as hoist_ops
 from repro_torch.kernels.modops import ops as mo
 from repro_torch.kernels.ntt import ops as ntt_ops
+from repro_torch.obs.spans import span
 
 from . import poly, rns, trace
 from .keys import KeySet, SwitchingKey
@@ -79,27 +80,30 @@ def _boundary(n: int, limbs: int) -> None:
 @functools.lru_cache(maxsize=2048)
 def _digit_tables(params: CkksParams, level: int, j: int):
     """(src_idx, bhat_inv, w, dst_primes) for digit j at ``level``."""
-    digit_idx = tuple(i for i in params.digit(j) if i <= level)
-    src = poly.primes_for(params, digit_idx)
-    dst = poly.primes_for(params, poly.ext_idx(params, level))
-    bhat_inv, w = rns.bconv_tables(src, dst)
-    return digit_idx, bhat_inv, w, dst
+    with span("fhe.table.digit_tables"):
+        digit_idx = tuple(i for i in params.digit(j) if i <= level)
+        src = poly.primes_for(params, digit_idx)
+        dst = poly.primes_for(params, poly.ext_idx(params, level))
+        bhat_inv, w = rns.bconv_tables(src, dst)
+        return digit_idx, bhat_inv, w, dst
 
 
 @functools.lru_cache(maxsize=512)
 def _moddown_tables(params: CkksParams, level: int):
-    p_primes = poly.primes_for(params, poly.p_idx(params))
-    q_primes = poly.primes_for(params, poly.q_idx(params, level))
-    bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
-    P = rns.product(p_primes)
-    pinv = np.array([pow(P % q, -1, q) for q in q_primes], np.uint32)
-    return bhat_inv, w, q_primes, pinv
+    with span("fhe.table.moddown_tables"):
+        p_primes = poly.primes_for(params, poly.p_idx(params))
+        q_primes = poly.primes_for(params, poly.q_idx(params, level))
+        bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
+        P = rns.product(p_primes)
+        pinv = np.array([pow(P % q, -1, q) for q in q_primes], np.uint32)
+        return bhat_inv, w, q_primes, pinv
 
 
 @functools.lru_cache(maxsize=2048)
 def _limb_column(consts: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """(k, 1) int32 on ``device``, uploaded once per (constants, device)."""
-    return torch.tensor(consts, dtype=torch.int32, device=device)[:, None]
+    with span("fhe.table.limb_column"):
+        return torch.tensor(consts, dtype=torch.int32, device=device)[:, None]
 
 
 def _per_limb(consts, like: torch.Tensor) -> torch.Tensor:
@@ -349,14 +353,15 @@ def hoisted_ksk(params: CkksParams, keys: KeySet, t: int, level: int):
     if hit is not None:
         cache[(t, level)] = cache.pop((t, level))  # move to MRU position
         return hit
-    sel = _select_ksk(keys.galois(t), params, level, params.beta(level))
-    tinv = pow(t, -1, 2 * params.n)
-    pre = torch.index_select(sel, -1, poly.eval_perm(params.n, tinv, sel.device))
-    if _nbytes(pre) <= HOIST_KSK_CACHE_BYTES:
-        while cache and sum(_nbytes(v) for v in cache.values()) + _nbytes(pre) > HOIST_KSK_CACHE_BYTES:
-            cache.pop(next(iter(cache)))  # evict LRU (dicts preserve insertion order)
-        cache[(t, level)] = pre
-    return pre
+    with span("fhe.table.hoisted_ksk"):
+        sel = _select_ksk(keys.galois(t), params, level, params.beta(level))
+        tinv = pow(t, -1, 2 * params.n)
+        pre = torch.index_select(sel, -1, poly.eval_perm(params.n, tinv, sel.device))
+        if _nbytes(pre) <= HOIST_KSK_CACHE_BYTES:
+            while cache and sum(_nbytes(v) for v in cache.values()) + _nbytes(pre) > HOIST_KSK_CACHE_BYTES:
+                cache.pop(next(iter(cache)))  # evict LRU (dicts preserve insertion order)
+            cache[(t, level)] = pre
+        return pre
 
 
 def hoisted_galois_ks(hd: HoistedDigits, ksk_stack, params: CkksParams, level: int, backend: str = "auto"):

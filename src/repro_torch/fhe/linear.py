@@ -22,6 +22,8 @@ import math
 
 import numpy as np
 
+from repro_torch.obs.spans import span
+
 from . import ops
 from .params import CkksParams
 
@@ -172,38 +174,39 @@ def _apply_bsgs(ctx, ct: ops.Ciphertext, plan: BsgsPlan,
     rotations apply to *different* ciphertexts (the per-group partial sums),
     so they cannot share a ModUp and always run the standard path.
     """
-    params = ctx.params
-    keys = ctx.require_keys()
-    hoisting = ctx.policy.hoisting
-    scale = params.scale if scale is None else scale
-    lv = ct.level
+    with span("fhe.bsgs"):
+        params = ctx.params
+        keys = ctx.require_keys()
+        hoisting = ctx.policy.hoisting
+        scale = params.scale if scale is None else scale
+        lv = ct.level
 
-    babies: dict[int, ops.Ciphertext] = {0: ct}
-    needed_b = plan.baby_steps()
-    if hoisting == "always" or (hoisting == "auto" and len(needed_b) >= 2):
-        babies.update(ops._rotate_hoisted_group(ctx, ct, needed_b, keys))
-    else:
-        for b in needed_b:
-            babies[b] = ops._rotate_standard(ctx, ct, b, keys)
+        babies: dict[int, ops.Ciphertext] = {0: ct}
+        needed_b = plan.baby_steps()
+        if hoisting == "always" or (hoisting == "auto" and len(needed_b) >= 2):
+            babies.update(ops._rotate_hoisted_group(ctx, ct, needed_b, keys))
+        else:
+            for b in needed_b:
+                babies[b] = ops._rotate_standard(ctx, ct, b, keys)
 
-    by_giant: dict[int, list[int]] = {}
-    for d in plan.diags:
-        by_giant.setdefault(d // plan.n1, []).append(d)
+        by_giant: dict[int, list[int]] = {}
+        for d in plan.diags:
+            by_giant.setdefault(d // plan.n1, []).append(d)
 
-    total: ops.Ciphertext | None = None
-    for g, ds in sorted(by_giant.items()):
-        acc: ops.Ciphertext | None = None
-        for d in ds:
-            b = d % plan.n1
-            u = np.roll(plan.diags[d], g * plan.n1)  # pre-rotate the diagonal
-            pt = ops._encode(ctx, u, level=lv, scale=scale)
-            term = ops._mul_plain(ctx, babies[b], pt, rescale_after=False)
-            acc = term if acc is None else ops._add(ctx, acc, term)
-        if g:
-            acc = ops._rotate_standard(ctx, acc, g * plan.n1, keys)
-        total = acc if total is None else ops._add(ctx, total, acc)
+        total: ops.Ciphertext | None = None
+        for g, ds in sorted(by_giant.items()):
+            acc: ops.Ciphertext | None = None
+            for d in ds:
+                b = d % plan.n1
+                u = np.roll(plan.diags[d], g * plan.n1)  # pre-rotate the diagonal
+                pt = ops._encode(ctx, u, level=lv, scale=scale)
+                term = ops._mul_plain(ctx, babies[b], pt, rescale_after=False)
+                acc = term if acc is None else ops._add(ctx, acc, term)
+            if g:
+                acc = ops._rotate_standard(ctx, acc, g * plan.n1, keys)
+            total = acc if total is None else ops._add(ctx, total, acc)
 
-    return ops._rescale(ctx, total)
+        return ops._rescale(ctx, total)
 
 
 def _real_part(ctx, ct: ops.Ciphertext) -> ops.Ciphertext:

@@ -18,6 +18,8 @@ import functools
 
 import numpy as np
 
+from repro_torch.obs.spans import span
+
 from . import modmath as mm
 
 
@@ -111,13 +113,14 @@ def subplan(n: int, primes: tuple[int, ...], idx: tuple[int, ...]) -> NttPlan:
     rows of every per-limb table.  Cached — the set of distinct subsets during a
     workload is O(L·dnum).
     """
-    base = build_plan(n, primes)
-    sel = np.array(idx, np.int64)
-    return dataclasses.replace(
-        base,
-        primes=tuple(base.primes[i] for i in idx),
-        **{f: getattr(base, f)[sel] for f in _PER_LIMB_FIELDS},
-    )
+    with span("fhe.table.ntt_subplan"):
+        base = build_plan(n, primes)
+        sel = np.array(idx, np.int64)
+        return dataclasses.replace(
+            base,
+            primes=tuple(base.primes[i] for i in idx),
+            **{f: getattr(base, f)[sel] for f in _PER_LIMB_FIELDS},
+        )
 
 
 def galois_eval_perm(n: int, t: int) -> np.ndarray:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.modops import ops as mo
+from repro_torch.obs.spans import span
 
 from . import encoder, keyswitch, poly, trace
 from .keys import KeySet, PublicKey, SecretKey, SwitchingKey
@@ -57,17 +58,25 @@ def _residues_eval(ctx, coeffs: np.ndarray, level: int) -> torch.Tensor:
 
 
 def _encode(ctx, z, level: int | None = None, scale: float | None = None) -> Plaintext:
-    params = ctx.params
-    level = params.L if level is None else level
-    scale = params.scale if scale is None else scale
-    coeffs = encoder.encode(np.asarray(z), params.n, scale, params.q_primes[: level + 1])
-    return Plaintext(data=_residues_eval(ctx, coeffs, level), level=level, scale=scale)
+    with span("fhe.encode"):
+        params = ctx.params
+        level = params.L if level is None else level
+        scale = params.scale if scale is None else scale
+        with span("fhe.encode.coeffs"):
+            coeffs = encoder.encode(np.asarray(z), params.n, scale, params.q_primes[: level + 1])
+        with span("fhe.encode.upload"):
+            data = _residues_eval(ctx, coeffs, level)
+        return Plaintext(data=data, level=level, scale=scale)
 
 
 def _encode_const(ctx, c, level: int, scale: float) -> Plaintext:
-    params = ctx.params
-    coeffs = encoder.encode_const(c, params.n, scale, params.q_primes[: level + 1])
-    return Plaintext(data=_residues_eval(ctx, coeffs, level), level=level, scale=scale)
+    with span("fhe.encode_const"):
+        params = ctx.params
+        with span("fhe.encode.coeffs"):
+            coeffs = encoder.encode_const(c, params.n, scale, params.q_primes[: level + 1])
+        with span("fhe.encode.upload"):
+            data = _residues_eval(ctx, coeffs, level)
+        return Plaintext(data=data, level=level, scale=scale)
 
 
 def _decode(ctx, pt: Plaintext) -> np.ndarray:
@@ -226,7 +235,8 @@ def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bo
     cross2 = mo.pointwise_mulmod(a.c1, b.c0, qs)
     trace.record("PADD", params.n, lv + 1)
     d1 = mo.pointwise_addmod(cross1, cross2, qs)
-    ks0, ks1 = keyswitch.key_switch(d2, params, lv, rlk, ctx.backend)
+    with span("fhe.keyswitch"):
+        ks0, ks1 = keyswitch.key_switch(d2, params, lv, rlk, ctx.backend)
     trace.record("PADD", params.n, 2 * (lv + 1))
     out = Ciphertext(
         c0=mo.pointwise_addmod(d0, ks0, qs),
@@ -240,9 +250,10 @@ def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bo
 def _rescale_tables(q_last: int, qs_rem: tuple[int, ...], device: torch.device):
     """The remaining moduli (l, 1) int64 and q_last^{-1} mod each (l, 1) int32,
     uploaded once per (moduli, device)."""
-    qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
-    return (torch.as_tensor(np.array(qs_rem, np.int64)[:, None], device=device),
-            torch.as_tensor(qinv[:, None], device=device))
+    with span("fhe.table.rescale_tables"):
+        qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
+        return (torch.as_tensor(np.array(qs_rem, np.int64)[:, None], device=device),
+                torch.as_tensor(qinv[:, None], device=device))
 
 
 def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
@@ -267,7 +278,8 @@ def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
         trace.record("PMULT", params.n, lv)
         return mo.pointwise_mulmod(diff, qinv_t.expand(diff.shape), qs_rem)
 
-    return Ciphertext(c0=_one(ct.c0), c1=_one(ct.c1), level=lv - 1, scale=ct.scale / q_last)
+    with span("fhe.rescale"):
+        return Ciphertext(c0=_one(ct.c0), c1=_one(ct.c1), level=lv - 1, scale=ct.scale / q_last)
 
 
 # ---------------------------------------------------------------------------
@@ -314,8 +326,9 @@ def _rotate_hoisted(ctx, ct: Ciphertext, r: int, keys: KeySet,
     if r % params.slots == 0:
         return ct
     t = pow(5, r % params.slots, 2 * params.n)
-    hd = hoisted if hoisted is not None else keyswitch.hoisted_mod_up(ct.c1, params, ct.level, ctx.backend)
-    c0, c1 = keyswitch.rotate_hoisted(ct.c0, hd, t, keys, params, ct.level, ctx.backend)
+    with span("fhe.keyswitch"):
+        hd = hoisted if hoisted is not None else keyswitch.hoisted_mod_up(ct.c1, params, ct.level, ctx.backend)
+        c0, c1 = keyswitch.rotate_hoisted(ct.c0, hd, t, keys, params, ct.level, ctx.backend)
     return Ciphertext(c0=c0, c1=c1, level=ct.level, scale=ct.scale)
 
 
@@ -338,14 +351,15 @@ def _rotate_hoisted_group(ctx, ct: Ciphertext, rots, keys: KeySet) -> dict[int, 
     if not uniq:
         return {r: ct for r in rots}
     lv = ct.level
-    hd = keyswitch.hoisted_mod_up(ct.c1, params, lv, backend)
-    ksk_stack = torch.stack([keyswitch.hoisted_ksk(params, keys, t, lv) for t in uniq.values()])
-    accs = keyswitch.hoisted_galois_ks(hd, ksk_stack, params, lv, backend)
-    ks = keyswitch.mod_down_group(accs, params, lv, backend)
     by_rm: dict[int, Ciphertext] = {}
-    for i, (rm, t) in enumerate(uniq.items()):
-        c0, c1 = keyswitch.permute_last(ct.c0, ks[i, 0], ks[i, 1], t, params, lv)
-        by_rm[rm] = Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)
+    with span("fhe.keyswitch"):
+        hd = keyswitch.hoisted_mod_up(ct.c1, params, lv, backend)
+        ksk_stack = torch.stack([keyswitch.hoisted_ksk(params, keys, t, lv) for t in uniq.values()])
+        accs = keyswitch.hoisted_galois_ks(hd, ksk_stack, params, lv, backend)
+        ks = keyswitch.mod_down_group(accs, params, lv, backend)
+        for i, (rm, t) in enumerate(uniq.items()):
+            c0, c1 = keyswitch.permute_last(ct.c0, ks[i, 0], ks[i, 1], t, params, lv)
+            by_rm[rm] = Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)
     return {r: (by_rm[r % params.slots] if r % params.slots else ct) for r in rots}
 
 
@@ -365,7 +379,8 @@ def _apply_galois(ctx, ct: Ciphertext, t: int, keys: KeySet) -> Ciphertext:
     """
     params = ctx.params
     lv = ct.level
-    ksk_pre = keyswitch.hoisted_ksk(params, keys, t, lv)
-    ks0, ks1 = keyswitch.key_switch_selected(ct.c1, params, lv, ksk_pre, ctx.backend)
-    c0, c1 = keyswitch.permute_last(ct.c0, ks0, ks1, t, params, lv)
+    with span("fhe.keyswitch"):
+        ksk_pre = keyswitch.hoisted_ksk(params, keys, t, lv)
+        ks0, ks1 = keyswitch.key_switch_selected(ct.c1, params, lv, ksk_pre, ctx.backend)
+        c0, c1 = keyswitch.permute_last(ct.c0, ks0, ks1, t, params, lv)
     return Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)

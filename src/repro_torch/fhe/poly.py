@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ntt import ops as ntt_ops
+from repro_torch.obs.spans import span
 
 from . import ntt as nttmod
 from . import trace
@@ -40,7 +41,8 @@ def ext_idx(params: CkksParams, level: int) -> tuple[int, ...]:
 
 @functools.lru_cache(maxsize=4096)
 def plan_for(params: CkksParams, idx: tuple[int, ...]) -> nttmod.NttPlan:
-    return nttmod.subplan(params.n, params.all_primes, idx)
+    with span("fhe.table.plan_for"):
+        return nttmod.subplan(params.n, params.all_primes, idx)
 
 
 def primes_for(params: CkksParams, idx: tuple[int, ...]) -> tuple[int, ...]:
@@ -67,7 +69,8 @@ def to_coeff(x: torch.Tensor, params: CkksParams, idx: tuple[int, ...]) -> torch
 
 @functools.lru_cache(maxsize=512)
 def _eval_perm(n: int, t: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(nttmod.galois_eval_perm(n, t).astype(np.int64)).to(device)
+    with span("fhe.table.eval_perm"):
+        return torch.from_numpy(nttmod.galois_eval_perm(n, t).astype(np.int64)).to(device)
 
 
 def eval_perm(n: int, t: int, device) -> torch.Tensor:

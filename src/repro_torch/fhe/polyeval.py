@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.obs.spans import span
+
 from . import ops
 
 
@@ -91,8 +93,9 @@ class ChebyshevBasis:
         self.degree = degree
         self.backend = ctx.backend
         self.t: dict[int, ops.Ciphertext] = {1: x}
-        for j in range(2, degree + 1):
-            self.t[j] = self._pair(j)
+        with span("fhe.cheb.basis"):
+            for j in range(2, degree + 1):
+                self.t[j] = self._pair(j)
 
     def _pair(self, j: int) -> ops.Ciphertext:
         """T_j = 2·T_a·T_b − T_{|a−b|},  a = ⌊j/2⌋."""
@@ -112,28 +115,29 @@ class ChebyshevBasis:
 
 def _eval_chebyshev(ctx, basis: ChebyshevBasis, coeffs: np.ndarray) -> ops.Ciphertext:
     """Σ c_i·T_i(x) as one exact plaintext linear combination."""
-    params = ctx.params
-    c = np.asarray(coeffs, dtype=np.float64)
-    assert len(c) - 1 <= basis.degree
-    s_star = params.scale
-    lv_star = basis.min_level() - 1
+    with span("fhe.cheb.combine"):
+        params = ctx.params
+        c = np.asarray(coeffs, dtype=np.float64)
+        assert len(c) - 1 <= basis.degree
+        s_star = params.scale
+        lv_star = basis.min_level() - 1
 
-    acc: ops.Ciphertext | None = None
-    for i in range(1, len(c)):
-        if abs(c[i]) < 1e-14:
-            continue
-        ti = basis.t[i]
-        # encode so the rescaled product lands at exactly (ti.level-1, s*)
-        enc_scale = s_star * float(params.q_primes[ti.level]) / ti.scale
-        assert enc_scale > 256.0, f"enc_scale underflow at T_{i} (scale drift)"
-        pt = ops._encode_const(ctx, float(c[i]), ti.level, enc_scale)
-        term = ops._mul_plain(ctx, ti, pt, rescale_after=True)
-        term = ops.Ciphertext(term.c0, term.c1, term.level, s_star)  # exact
-        term = _force_to(ctx, term, lv_star, s_star)
-        acc = term if acc is None else ops._add(ctx, acc, term)
-    if acc is None:
-        z = ops._mul_const(ctx, basis.t[1], 0.0)
-        acc = _force_to(ctx, ops.Ciphertext(z.c0, z.c1, z.level, s_star), lv_star, s_star)
-    if abs(c[0]) > 1e-14:
-        acc = ops._add_const(ctx, acc, float(c[0]))
-    return acc
+        acc: ops.Ciphertext | None = None
+        for i in range(1, len(c)):
+            if abs(c[i]) < 1e-14:
+                continue
+            ti = basis.t[i]
+            # encode so the rescaled product lands at exactly (ti.level-1, s*)
+            enc_scale = s_star * float(params.q_primes[ti.level]) / ti.scale
+            assert enc_scale > 256.0, f"enc_scale underflow at T_{i} (scale drift)"
+            pt = ops._encode_const(ctx, float(c[i]), ti.level, enc_scale)
+            term = ops._mul_plain(ctx, ti, pt, rescale_after=True)
+            term = ops.Ciphertext(term.c0, term.c1, term.level, s_star)  # exact
+            term = _force_to(ctx, term, lv_star, s_star)
+            acc = term if acc is None else ops._add(ctx, acc, term)
+        if acc is None:
+            z = ops._mul_const(ctx, basis.t[1], 0.0)
+            acc = _force_to(ctx, ops.Ciphertext(z.c0, z.c1, z.level, s_star), lv_star, s_star)
+        if abs(c[0]) > 1e-14:
+            acc = ops._add_const(ctx, acc, float(c[0]))
+        return acc

@@ -15,6 +15,7 @@ import torch
 from repro_torch.fhe import modmath as mm
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, ptr, u32_tensor
+from repro_torch.obs.spans import span
 
 from . import ref as _ref
 
@@ -24,8 +25,9 @@ _MUL, _ADD, _SUB = 0, 1, 2
 
 @functools.lru_cache(maxsize=1024)
 def _constants(qs: tuple[int, ...], device: torch.device):
-    c = mm.mont_constants_array(qs)
-    return tuple(u32_tensor(c[k], device) for k in ("q", "qinv_neg", "r2"))
+    with span("fhe.table.modops_constants"):
+        c = mm.mont_constants_array(qs)
+        return tuple(u32_tensor(c[k], device) for k in ("q", "qinv_neg", "r2"))
 
 
 def _launch(op: int, a: torch.Tensor, b: torch.Tensor, qs) -> torch.Tensor:

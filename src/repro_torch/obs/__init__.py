@@ -1,4 +1,4 @@
-"""repro_torch.obs — observability: span tracing, Perfetto export, metrics, perf history.
+"""repro_torch.obs — observability: span tracing, Perfetto export, metrics, profiler spans.
 
   trace    — ``Tracer``: deterministic span/instant/counter/async events with
              sim-clock (event loop) or dispatch-index timestamps; a no-op
@@ -9,8 +9,13 @@
   metrics  — in-process registry (labelled counters, gauges, fixed-bucket
              histograms) with a plain-dict ``snapshot()``; the cluster
              router's shed/fault books live here
-  history  — ``BENCH_HISTORY.json`` append + trailing-median regression
-             check (``tools/bench_history.py`` is the CLI)
+  spans    — ``span(name)``: wall-clock spans inside the port on
+             ``torch.profiler``'s clock (the same clock as the device's
+             kernels and copies); a shared no-op while no profiler records
+
+Two seams, two clocks: ``Tracer`` is simulated time (the simulator's and the
+serving model's timelines, byte-stable), ``span`` is real time (what the host
+does while the card runs, read from a profiler trace).
 
 Quick use (see docs/observability.md for the full seam map)::
 
@@ -28,8 +33,8 @@ from .export import (
     validate_chrome_trace,
     write_chrome_trace,
 )
-from .history import append_rows, check_regression, load_history, parse_row_name
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .spans import span
 from .trace import Tracer
 
 __all__ = [
@@ -42,8 +47,5 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
-    "append_rows",
-    "check_regression",
-    "load_history",
-    "parse_row_name",
+    "span",
 ]

@@ -1,5 +1,8 @@
 """Deterministic span/event tracer for simulator and serving timelines.
 
+This is the simulated-time seam.  Real time inside the port (the host's work
+beside the card's, on ``torch.profiler``'s clock) is ``repro_torch.obs.spans``.
+
 ``Tracer`` records a flat list of Chrome ``trace_event``-shaped dicts (see
 ``repro_torch.obs.export`` for the file format and the pid/tid conventions) with
 three hard rules that make traces *reproducible artifacts* rather than

@@ -44,7 +44,7 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     for name in ("core.hardware", "core.cache", "core.jobs", "core.planner", "core.simulator",
                  "core.scheduler", "core.executor", "serve.events", "serve.faults", "serve.policy",
                  "serve.traffic", "serve.cluster", "serve.metrics", "obs.trace", "obs.export",
-                 "obs.metrics", "obs.history", "fhe.context", "kernels.cuda", "models.config", "models.layers",
+                 "obs.metrics", "obs.spans", "fhe.context", "kernels.cuda", "models.config", "models.layers",
                  "models.lm", "models.vlm", "models.whisper", "models.registry", "models.convert", "serving.engine",
                  "launch.serve", "data.pipeline", "configs", "configs.smollm_135m", "configs.whisper_medium",
                  "training.optimizer", "training.compress", "training.train_step", "checkpoint.failures",

@@ -5,10 +5,9 @@ straggler window, flaky failures, retries and cross-chip gangs), through
 ``chip_smoke.py``'s copy of its builders, runs in both packages: the
 Chrome-trace exports are byte-identical (and hash to the digest the smoke
 holds on the card), valid, and a run with the tracer off gives the same
-timeline.  Then the semantics of
-the tracer, the metrics registry and the perf history (under ``tmp_path``),
-and ``ExecPolicy.traced`` on a real multiply: one slice per kernel dispatch,
-in the order and with the names the reference's traced multiply records."""
+timeline.  Then the semantics of the tracer and the metrics registry, and
+``ExecPolicy.traced`` on a real multiply: one slice per kernel dispatch, in
+the order and with the names the reference's traced multiply records."""
 
 import hashlib
 import importlib.util
@@ -41,11 +40,7 @@ from repro_torch.kernels import dispatch as T_dispatch
 from repro_torch.obs import (
     MetricsRegistry,
     Tracer,
-    append_rows,
-    check_regression,
     dumps_chrome_trace,
-    load_history,
-    parse_row_name,
     to_chrome_trace,
     validate_chrome_trace,
 )
@@ -207,28 +202,6 @@ def test_metrics_registry_semantics_equal():
     assert total == 4.0 and by_reason == {"timeout": 3.0, "token_bucket": 1.0}
     assert by_chip["1"] == {("timeout",): 1.0}
     assert gauge == 10.0 and hist["count"] == 3 and hist["sum"] == 555.0 and mean == 185.0
-
-
-# -- perf history ------------------------------------------------------------------
-
-
-def test_history_roundtrip_equal(tmp_path):
-    rows = [("b.s.lat", 10.0), ("b.s.note", "text"), ("cluster.shallow.jsq.p99", 3)]
-    for pkg, path in ((T_obs, tmp_path / "port.json"), (R_obs, tmp_path / "ref.json")):
-        assert pkg.load_history(str(path)) == []
-        assert pkg.append_rows(str(path), rows, commit="abc1234", date="2026-08-09") == 2
-        pkg.append_rows(str(path), [("b.s.lat", 11.0)], commit="def", date="2026-08-10")
-    assert load_history(str(tmp_path / "port.json")) == R_obs.load_history(str(tmp_path / "ref.json"))
-    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
-    assert [r["value"] for r in load_history(str(tmp_path / "port.json"))] == [10.0, 3.0, 11.0]
-    for name in ("cluster.shallow.jsq.chips4.p99", "bench.metric", "metric"):
-        assert parse_row_name(name) == R_obs.parse_row_name(name)
-    series = lambda metric, vals: [{"bench": "b", "scenario": "s", "metric": metric, "value": v} for v in vals]
-    for hist in (series("lat", [100, 102, 98, 101]), series("lat", [100, 102, 98, 150]),
-                 series("lat", [100, 102, 98, 50]), series("wall_ms", [100, 500]),
-                 series("lat", [1000] + [100] * 8 + [101])):
-        assert check_regression(hist) == R_obs.check_regression(hist)
-    assert len(check_regression(series("lat", [100, 102, 98, 150]))) == 1
 
 
 # -- ExecPolicy.traced -------------------------------------------------------------
