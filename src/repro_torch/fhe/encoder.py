@@ -75,10 +75,18 @@ def encode(z: np.ndarray, n: int, scale: float, primes) -> np.ndarray:
     return rns.to_rns_i64(encode_coeffs(z, n, scale), primes)
 
 
+def const_integer(c: complex, scale: float) -> int | None:
+    """round(c·scale) of a real scalar c, the constant coefficient it encodes
+    to; None for a complex one, which encodes through the slots."""
+    if abs(complex(c).imag) < 1e-300:
+        return int(round(float(np.real(c)) * scale))
+    return None
+
+
 def encode_const(c: complex, n: int, scale: float, primes) -> np.ndarray:
     """Scalar broadcast to all slots.  Real scalars encode to a constant poly."""
-    if abs(complex(c).imag) < 1e-300:
-        v = int(round(float(np.real(c)) * scale))
+    v = const_integer(c, scale)
+    if v is not None:
         out = np.zeros((len(primes), n), np.uint32)
         for i, p in enumerate(primes):
             out[i, 0] = v % int(p)

@@ -69,11 +69,31 @@ def _encode(ctx, z, level: int | None = None, scale: float | None = None) -> Pla
         return Plaintext(data=data, level=level, scale=scale)
 
 
+@functools.lru_cache(maxsize=512)
+def _moduli_column(qs: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The moduli as an (l, 1) int64 column, uploaded once per (moduli, device)."""
+    with span("fhe.table.moduli_column"):
+        return torch.as_tensor(np.array(qs, np.int64)[:, None], device=device)
+
+
 def _encode_const(ctx, c, level: int, scale: float) -> Plaintext:
+    """A real constant c encodes to the polynomial round(c·scale), whose NTT
+    is that integer's residue in every slot of a limb: the eval-domain
+    plaintext is built where it is used, as the column r_i = round(c·scale)
+    mod q_i broadcast over N, with the integer passed as a kernel argument
+    (no host array, no copy, no NTT).  A complex constant, or a real one of
+    2^62 or more, is encoded on the host and transformed."""
     with span("fhe.encode_const"):
         params = ctx.params
+        qs = _qs(params, level)
+        v = encoder.const_integer(c, scale)
+        if v is not None and abs(v) < 1 << 62:
+            with span("fhe.encode.const_column"):
+                q = _moduli_column(qs, ctx.device)
+                col = torch.remainder(torch.full_like(q, v), q).to(torch.int32)
+            return Plaintext(data=col.expand(level + 1, params.n), level=level, scale=scale)
         with span("fhe.encode.coeffs"):
-            coeffs = encoder.encode_const(c, params.n, scale, params.q_primes[: level + 1])
+            coeffs = encoder.encode_const(c, params.n, scale, qs)
         with span("fhe.encode.upload"):
             data = _residues_eval(ctx, coeffs, level)
         return Plaintext(data=data, level=level, scale=scale)
@@ -248,12 +268,11 @@ def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bo
 
 @functools.lru_cache(maxsize=512)
 def _rescale_tables(q_last: int, qs_rem: tuple[int, ...], device: torch.device):
-    """The remaining moduli (l, 1) int64 and q_last^{-1} mod each (l, 1) int32,
+    """The remaining moduli's column and q_last^{-1} mod each (l, 1) int32,
     uploaded once per (moduli, device)."""
     with span("fhe.table.rescale_tables"):
         qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
-        return (torch.as_tensor(np.array(qs_rem, np.int64)[:, None], device=device),
-                torch.as_tensor(qinv[:, None], device=device))
+        return _moduli_column(qs_rem, device), torch.as_tensor(qinv[:, None], device=device)
 
 
 def _rescale(ctx, ct: Ciphertext) -> Ciphertext:

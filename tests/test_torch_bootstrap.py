@@ -6,7 +6,8 @@ ModRaise, CoeffToSlot, EvalMod, SlotToCoeff and the whole bootstrap give its
 ciphertexts bit for bit.  The port runs its default policy's fused pipeline
 with hoisted baby-step groups; the reference runs its ``ref`` backend (its
 fused one would run in Pallas interpret mode), and the trace streams and
-dispatch counts are compared with the port under ``ref`` too.  The last
+dispatch counts are compared with the port under ``ref`` too: the reference's
+less the NTT of each real constant, which the port builds with none.  The last
 tests check the reference's keys carried in through ``convert``, the digest
 ``chip_smoke.py`` checks on the card, and ModRaise at the
 ``packed_bootstrap`` preset's full width (N = 2^16, 58 limbs).
@@ -19,6 +20,7 @@ import types
 
 import numpy as np
 import pytest
+import reference_constants
 import torch
 
 from repro.fhe import bootstrap as R_B
@@ -77,9 +79,13 @@ def ref():
     z = _message(p.slots)
     ct = R_ops.level_drop(fc.mul_const(fc.encrypt(fc.encode(z)), ATT), 0)
     s = _stages(fc, bctx, ct)
-    with R_trace.capture_trace() as t, R_dispatch.count_dispatches() as c:
-        s.out = fc.bootstrap(bctx, ct, post_scale=1 / ATT)
-    return types.SimpleNamespace(p=p, bctx=bctx, fc=fc, z=z, ct=ct, s=s, trace=list(t), counts=dict(c))
+    with reference_constants.track() as marks:
+        with R_trace.capture_trace() as t, R_dispatch.count_dispatches() as c:
+            s.out = fc.bootstrap(bctx, ct, post_scale=1 / ATT)
+    # the port's streams: these less the NTT and the ``ntt`` dispatch of each real constant
+    return types.SimpleNamespace(p=p, bctx=bctx, fc=fc, z=z, ct=ct, s=s, trace=list(t), counts=dict(c),
+                                 port_trace=marks.stream(t), port_counts=marks.counts(c, t),
+                                 constants=len(marks.of(t)))
 
 
 @pytest.fixture(scope="module")
@@ -91,10 +97,11 @@ def port():
     ct = fc.level_drop(fc.mul_const(fc.encrypt(fc.encode(z)), ATT), 0)
     s = _stages(fc, bctx, ct)
     s.out = fc.bootstrap(bctx, ct, post_scale=1 / ATT)
-    with T_trace.capture_trace() as t, T_dispatch.count_dispatches() as c:
-        ref_out = fc.with_policy(backend="ref").bootstrap(bctx, ct, post_scale=1 / ATT)
+    with reference_constants.track() as marks:
+        with T_trace.capture_trace() as t, T_dispatch.count_dispatches() as c:
+            ref_out = fc.with_policy(backend="ref").bootstrap(bctx, ct, post_scale=1 / ATT)
     return types.SimpleNamespace(p=p, bctx=bctx, fc=fc, z=z, ct=ct, s=s, trace=list(t), counts=dict(c),
-                                 ref_out=ref_out)
+                                 ref_out=ref_out, constants=marks.port_constants(t))
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +134,9 @@ def test_bootstrap_trace_structure(ref, port):
     assert "MODRAISE" in names
     assert names.count("BCONV") > 50
     assert names.count("AUTO") > 20
-    assert _stream(port.trace) == _stream(ref.trace)
-    assert port.counts == ref.counts
+    assert _stream(port.trace) == _stream(ref.port_trace)
+    assert port.counts == ref.port_counts
+    assert port.constants == ref.constants == ref.counts["ntt"] - port.counts["ntt"] > 0
 
 
 def test_eval_mod_precision(ref, port):

@@ -3,7 +3,8 @@
 Every test needs a CUDA card, ``nvcc`` and sm_90a (an H100): each skips inside
 the ``card`` fixture where there is none.  The last tests run the rotation
 slice, the n = 2^8 bootstrap, BGV at ``psi`` and the multi-job executor end
-to end on the card against the reference digests of ``chip_smoke.py``, and
+to end on the card against the reference digests of ``chip_smoke.py``, a
+Chebyshev evaluation whose constants are built on the card, and
 each LM arch at SMOKE size against the port's CPU path; then the sharded
 train step on a one-rank NCCL mesh and ``restore(shardings=)`` onto it.  Run
 them on the card with
@@ -11,6 +12,7 @@ them on the card with
 """
 
 import importlib.util
+import json
 import pathlib
 
 import numpy as np
@@ -313,6 +315,49 @@ def test_executor_on_four_streams_equals_four_ctx_muls(card):
         assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1) and got.scale == want.scale
     assert cs.digest(outs[0]) == cs.REFERENCE["matmul"]["digest"]
     assert [cs.digest(o) for o in outs] == list(cs.EXECUTOR["digests"][:4])
+
+
+def test_eval_poly_builds_its_constants_on_the_card(card, tmp_path):
+    """A degree-15 Chebyshev evaluation at N = 2^12 under torch.profiler: no
+    host-to-device copy and no NTT pass is launched from inside an
+    ``fhe.encode_const`` span (a real constant is a residue column built on the
+    card), and the result equals the CPU port's byte for byte."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fhe import polyeval
+
+    p = P.make_params(1 << 12, 7, 1, check_security=False)
+    x = np.random.default_rng(11).uniform(-0.9, 0.9, size=p.slots)
+    coeffs = polyeval.chebyshev_fit(np.sin, 15)
+    outs = []
+    for device in (card, "cpu"):
+        ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, device=device), device=device)
+        ct = ctx.encrypt(ctx.encode(x))
+        outs.append(ctx.eval_poly(ct, coeffs))  # on the card: kernels built and tables cached before the profile
+    ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, device=card), device=card)
+    ct = ctx.encrypt(ctx.encode(x))
+    ctx.eval_poly(ct, coeffs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = ctx.eval_poly(ct, coeffs)
+        torch.cuda.synchronize()
+    for got in (outs[0], again):
+        assert torch.equal(got.c0.cpu(), outs[1].c0) and torch.equal(got.c1.cpu(), outs[1].c1)
+        assert (got.level, got.scale) == (outs[1].level, outs[1].scale)
+
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = [e for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"] if e.get("ph") == "X"]
+    consts = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+              if e.get("cat") == "user_annotation" and e["name"] == "fhe.encode_const"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] and e["ts"] + e["dur"] <= b and e["tid"] == tid for a, b, tid in consts)}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e.get("args", {}).get("correlation") in launched]
+    assert len(consts) > 15 and any(e.get("cat") == "kernel" for e in events)
+    assert any(e.get("cat") == "kernel" for e in device), "no kernel traced under a constant's span"
+    assert not [e["name"] for e in device if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    assert not [e["name"] for e in device if "ntt_pass" in e["name"]]
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "phi-3-vision-4.2b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",

@@ -5,11 +5,14 @@
 for bit (the encoding scales are float expressions, so one reordered product
 would show here), at n = 2^9 with one and two key-switch digits.  The
 reference runs its ``ref`` backend; the port runs its fused pipeline and, for
-the trace and dispatch comparison, ``ref`` too.
+the trace and dispatch comparison, ``ref`` too: there the port's streams are
+the reference's less the NTT of each real constant, which the port builds
+with none.
 """
 
 import numpy as np
 import pytest
+import reference_constants
 import torch
 
 from repro.fhe import keys as R_K
@@ -77,16 +80,21 @@ def test_chebyshev_basis_and_eval_match_reference(pair, degree):
 
 
 def test_eval_poly_trace_and_dispatches_match_reference(pair):
+    """The reference's streams less the NTT instruction and the ``ntt``
+    dispatch of each real constant, which the port builds with no NTT."""
     rctx, rct, tctx, tct, _ = pair
     c = _coeffs(7)
     tref = tctx.with_policy(backend="ref")
-    with T_trace.capture_trace() as tt, T_dispatch.count_dispatches() as tc:
-        got = tref.eval_poly(tct, c)
-    with R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
-        want = rctx.eval_poly(rct, c)
+    with reference_constants.track() as marks:
+        with T_trace.capture_trace() as tt, T_dispatch.count_dispatches() as tc:
+            got = tref.eval_poly(tct, c)
+        with R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
+            want = rctx.eval_poly(rct, c)
     _ct_eq(got, want)
-    assert _stream(tt) == _stream(rt)
-    assert tc == rc
+    assert _stream(tt) == _stream(marks.stream(rt))
+    assert tc == marks.counts(rc, rt)
+    removed = len(marks.of(rt))
+    assert removed == marks.port_constants(tt) == rc["ntt"] - tc.get("ntt", 0) > 0
 
 
 def test_eval_chebyshev_of_zero_and_constant_polynomials(pair):

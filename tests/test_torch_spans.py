@@ -5,8 +5,8 @@ trace, the events the benchmark's readers take: ``apply_bsgs`` encodes one
 diagonal per ``fhe.encode`` inside its ``fhe.bsgs`` and key-switches once per
 baby group (or baby rotation) and giant rotation; a Chebyshev evaluation shows
 one ``fhe.encode_const`` per ``_encode_const`` call under ``fhe.cheb.basis`` or
-``fhe.cheb.combine``; a cold table cache shows ``fhe.table.*`` spans and a warm
-one none.  With the profiler off ``span`` is one shared no-op, and on or off the
+``fhe.cheb.combine``, each holding one ``fhe.encode.const_column``; a cold
+table cache shows ``fhe.table.*`` spans and a warm one none.  With the profiler off ``span`` is one shared no-op, and on or off the
 ciphertexts, the ``fhe.trace`` streams and the kernel-dispatch counts are the
 same."""
 
@@ -38,8 +38,8 @@ PARAMS = P.make_params(1 << 9, 6, 2, check_security=False)
 DIAGS = (0, 1, 2, 3, 4, 5, 9, 10, 16, 17, 19)
 N1 = 4
 TABLE_BUILDERS = (keyswitch._digit_tables, keyswitch._moddown_tables, keyswitch._limb_column, ops._rescale_tables,
-                  fused_ops.ks_tables, fused_ops.moddown_tables, modops._constants, ntt_ops.kernel_tables,
-                  poly.plan_for, poly._eval_perm, nttmod.subplan)
+                  ops._moduli_column, fused_ops.ks_tables, fused_ops.moddown_tables, modops._constants,
+                  ntt_ops.kernel_tables, poly.plan_for, poly._eval_perm, nttmod.subplan)
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +110,10 @@ def test_chebyshev_encodes_each_constant_inside_its_span(setup, tmp_path, monkey
     parts = _named(spans, "fhe.cheb.basis") + _named(spans, "fhe.cheb.combine")
     assert len(consts) == len(calls) > 0 and len(parts) == 2
     assert all(_inside(c, parts) for c in consts) and not _named(spans, "fhe.encode")
+    # every constant is real: built as a residue column, never encoded on the host
+    columns = _named(spans, "fhe.encode.const_column")
+    assert len(columns) == len(consts) and all(_inside(c, consts) for c in columns)
+    assert not _named(spans, "fhe.encode.coeffs") and not _named(spans, "fhe.encode.upload")
     assert len(_named(spans, "fhe.keyswitch")) == degree - 1  # one relinearisation per T_2..T_degree
 
 
@@ -142,7 +146,7 @@ def test_profiler_changes_no_output_trace_or_dispatch(setup, tmp_path, name):
     assert off[1] == on[1] and off[2] == on[2]
 
 
-@pytest.mark.parametrize("name", ["bsgs.auto", "mul", "rotate"])
+@pytest.mark.parametrize("name", ["bsgs.auto", "mul", "rotate", "eval_poly"])
 def test_table_spans_show_a_cold_cache_only(setup, tmp_path, name):
     ctx, plan, ct = setup
     fn = _ops(ctx, plan, ct)[name]
@@ -153,4 +157,6 @@ def test_table_spans_show_a_cold_cache_only(setup, tmp_path, name):
     _, warm = _spans(fn, tmp_path / "warm.json")
     built = {s[2] for s in cold if s[2].startswith("fhe.table.")}
     assert "fhe.table.plan_for" in built and "fhe.table.ntt_subplan" in built
+    # the moduli column serves a real constant's encode and every rescale
+    assert ("fhe.table.moduli_column" in built) == (name != "rotate")
     assert [s for s in warm if s[2].startswith("fhe.table.")] == []
