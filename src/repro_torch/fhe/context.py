@@ -13,7 +13,7 @@
 
 Quick use::
 
-    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, keys as K, params as P
+    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, lstm, keys as K, params as P
 
     p = P.workload_params("matmul")
     ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=(1, 2)))
@@ -23,6 +23,7 @@ Quick use::
     plan = ctx.plan_matrix(m, tol=1e-12)          # BSGS diagonals of an slots×slots matrix
     mv = ctx.apply_bsgs(ct, plan)                 # needs keys for plan.rotations()
     y = ctx.eval_poly(ct, coeffs)                 # Σ c_i·T_i(x), Chebyshev basis
+    h1, c1 = ctx.lstm_step(lstm.build_plan(W, U, b, p), x, h0, c0)   # one LSTM step
 
     sp = P.workload_params("psi")                 # plain_modulus set: a BGV context
     bgv = FheContext(params=sp, keys=K.full_keyset(sp, seed=0))
@@ -46,7 +47,7 @@ from repro_torch.kernels import dispatch
 
 from . import bgv as _bgv
 from . import bootstrap as _bootstrap
-from . import keyswitch, linear, ops, polyeval
+from . import keyswitch, linear, lstm, ops, polyeval
 from .keys import KeySet, SwitchingKey
 from .params import CkksParams
 
@@ -389,6 +390,14 @@ class FheContext:
     @_hooked
     def eval_chebyshev(self, basis: polyeval.ChebyshevBasis, coeffs):
         return polyeval._eval_chebyshev(self, basis, coeffs)
+
+    # -- models --------------------------------------------------------------
+
+    @_hooked
+    def lstm_step(self, plan: lstm.LstmPlan, x, h, c):
+        """(h_t, c_t) of one LSTM step: the gates' BSGS matvecs, the polynomial
+        activations and the cell's products (``repro_torch.fhe.lstm``)."""
+        return lstm._lstm_step(self, plan, x, h, c)
 
     # -- bootstrapping -------------------------------------------------------
 
