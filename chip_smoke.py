@@ -110,6 +110,7 @@ It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -506,8 +507,9 @@ def planner_cases(PL, lstm, mlp, psi, exact, levels) -> list:
         pp = PL.PlanParams.of(ctx.params)
         for hoisting in ("always", "never"):
             c = ctx.with_policy(backend=backend, hoisting=hoisting)
+            # a copy holding no encoded diagonal: the exec stream encodes each one
             cases.append((f"{backend} apply_bsgs hoisting={hoisting}",
-                          lambda c=c, ct=ct, plan=plan: c.apply_bsgs(ct, plan),
+                          lambda c=c, ct=ct, plan=dataclasses.replace(plan): c.apply_bsgs(ct, plan),
                           PL.bsgs_matvec(pp, ct.level, len(plan.diags), plan.n1, mode="exec",
                                          hoist=hoisting == "always", fused=fused)))
         ctx, a, b = psi
@@ -2054,7 +2056,10 @@ def phases() -> int:
                                     ("staged bootstrap", ExecPolicy(backend="staged"), "staged")):
         fc = FheContext(params=boot_p, keys=bctx.keys, policy=policy, device=DEVICE)
         ct = fc.level_drop(fc.mul_const(fc.encrypt(fc.encode(z)), 1 / 64), 0)
-        boot = lambda fc=fc, ct=ct: fc.bootstrap(bctx, ct, post_scale=64)
+        # plans of its own, holding no encoded diagonal: the first bootstrap encodes every one
+        own = dataclasses.replace(bctx, cts_plans=tuple(map(dataclasses.replace, bctx.cts_plans)),
+                                  stc_plans=tuple(map(dataclasses.replace, bctx.stc_plans)))
+        boot = lambda fc=fc, ct=ct, own=own: fc.bootstrap(own, ct, post_scale=64)
         reset_launches()
         with dispatch.count_dispatches() as counts:
             out = timed(steps, label, boot)

@@ -11,8 +11,9 @@ Execution policy comes from ``repro_torch.fhe.context.FheContext`` —
 ``ctx.apply_bsgs``/``ctx.plan_matrix`` are the primary API, and
 ``plan_matrix`` picks the baby-step count n1 from a hoisting-aware cost model
 (under hoisting, baby steps are nearly free — see ``choose_n1``).  Planning is
-numpy on the host; the diagonals are encoded on the context's device when a
-transform is applied.
+numpy on the host; each diagonal is encoded on the context's device the first
+time the transform is applied at a level and scale, and the plan keeps the
+plaintext for every later application.
 """
 
 from __future__ import annotations
@@ -30,9 +31,23 @@ from .params import CkksParams
 
 @dataclasses.dataclass
 class BsgsPlan:
+    """The diagonals of M and the baby-step count n1 of its BSGS split.
+
+    The plan keeps every diagonal's encoded plaintext on the device it was
+    applied on, one per (diagonal, level, scale, device, params): the matvec
+    encodes a diagonal once, and every later application at the same level and
+    scale reads it back.  That holds #diagonals × (ℓ+1) × N × 4 B on the device
+    for each level and scale the plan is applied at (3.76 GB for an LSTM step's
+    eight plans at N = 2^16 and ℓ = 13; 28.3 MB for LoLa-MNIST's three at
+    N = 2^13), and is freed with the plan.  Equality ignores it.
+    """
+
     n1: int  # baby-step count
     diags: dict[int, np.ndarray]  # d → diag_d(M) (length n complex)
     _rot_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+    _plaintexts: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
 
@@ -60,6 +75,19 @@ class BsgsPlan:
             hit = frozenset(self.baby_steps()) | frozenset(self.giant_steps())
             self._rot_cache["all"] = hit
         return hit
+
+    def plaintext(self, ctx, d: int, level: int, scale: float) -> ops.Plaintext:
+        """diag_d pre-rotated by its giant step (d // n1)·n1 and encoded at
+        (level, scale) on the context's device: on the first call, then from
+        the plan (an ``fhe.bsgs.diag_hit`` span)."""
+        key = (d, level, scale, ctx.device, ctx.params)
+        pt = self._plaintexts.get(key)
+        if pt is not None:
+            with span("fhe.bsgs.diag_hit"):
+                return pt
+        u = np.roll(self.diags[d], (d // self.n1) * self.n1)
+        pt = self._plaintexts[key] = ops._encode(ctx, u, level=level, scale=scale)
+        return pt
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +200,9 @@ def _apply_bsgs(ctx, ct: ops.Ciphertext, plan: BsgsPlan,
     the group has fewer than two rotations), "never" key-switches each baby
     separately.  All modes are bit-exact against each other.  Giant-step
     rotations apply to *different* ciphertexts (the per-group partial sums),
-    so they cannot share a ModUp and always run the standard path.
+    so they cannot share a ModUp and always run the standard path.  Each
+    diagonal's plaintext comes from the plan (``BsgsPlan.plaintext``), encoded
+    on the first application at this level and scale only.
     """
     with span("fhe.bsgs"):
         params = ctx.params
@@ -197,10 +227,8 @@ def _apply_bsgs(ctx, ct: ops.Ciphertext, plan: BsgsPlan,
         for g, ds in sorted(by_giant.items()):
             acc: ops.Ciphertext | None = None
             for d in ds:
-                b = d % plan.n1
-                u = np.roll(plan.diags[d], g * plan.n1)  # pre-rotate the diagonal
-                pt = ops._encode(ctx, u, level=lv, scale=scale)
-                term = ops._mul_plain(ctx, babies[b], pt, rescale_after=False)
+                pt = plan.plaintext(ctx, d, lv, scale)
+                term = ops._mul_plain(ctx, babies[d % plan.n1], pt, rescale_after=False)
                 acc = term if acc is None else ops._add(ctx, acc, term)
             if g:
                 acc = ops._rotate_standard(ctx, acc, g * plan.n1, keys)

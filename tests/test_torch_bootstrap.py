@@ -6,8 +6,9 @@ ModRaise, CoeffToSlot, EvalMod, SlotToCoeff and the whole bootstrap give its
 ciphertexts bit for bit.  The port runs its default policy's fused pipeline
 with hoisted baby-step groups; the reference runs its ``ref`` backend (its
 fused one would run in Pallas interpret mode), and the trace streams and
-dispatch counts are compared with the port under ``ref`` too: the reference's
-less the NTT of each real constant, which the port builds with none.  The last
+dispatch counts are compared with the port under ``ref`` too, through plans
+that hold no encoded diagonal yet: the reference's less the NTT of each real
+constant, which the port builds with none.  The last
 tests check the reference's keys carried in through ``convert``, the digest
 ``chip_smoke.py`` checks on the card, and ModRaise at the
 ``packed_bootstrap`` preset's full width (N = 2^16, 58 limbs).
@@ -57,6 +58,14 @@ def _stream(instrs):
     return [(i.op, i.n, i.limbs, i.meta) for i in instrs]
 
 
+def _fresh_plans(bctx):
+    """``bctx`` with copies of its CtS and StC plans that hold no encoded
+    diagonal yet: a bootstrap through it encodes every diagonal, as the
+    reference's does, so the streams compare whole."""
+    return dataclasses.replace(bctx, cts_plans=tuple(map(dataclasses.replace, bctx.cts_plans)),
+                               stc_plans=tuple(map(dataclasses.replace, bctx.stc_plans)))
+
+
 def _message(slots):
     rng = np.random.default_rng(7)
     return rng.normal(size=slots) * 0.4 + 1j * rng.normal(size=slots) * 0.4
@@ -99,7 +108,7 @@ def port():
     s.out = fc.bootstrap(bctx, ct, post_scale=1 / ATT)
     with reference_constants.track() as marks:
         with T_trace.capture_trace() as t, T_dispatch.count_dispatches() as c:
-            ref_out = fc.with_policy(backend="ref").bootstrap(bctx, ct, post_scale=1 / ATT)
+            ref_out = fc.with_policy(backend="ref").bootstrap(_fresh_plans(bctx), ct, post_scale=1 / ATT)
     return types.SimpleNamespace(p=p, bctx=bctx, fc=fc, z=z, ct=ct, s=s, trace=list(t), counts=dict(c),
                                  ref_out=ref_out, constants=marks.port_constants(t))
 
@@ -201,7 +210,7 @@ def test_stage_traces_and_dispatches_match_reference(ref, port):
     tfc, rfc = port.fc.with_policy(backend="ref"), ref.fc
     for stage in ("mod_raise", "coeff_to_slot"):
         with T_trace.capture_trace() as tt, T_dispatch.count_dispatches() as tc:
-            getattr(tfc, stage)(port.bctx, port.ct if stage == "mod_raise" else port.s.raised)
+            getattr(tfc, stage)(_fresh_plans(port.bctx), port.ct if stage == "mod_raise" else port.s.raised)
         with R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
             getattr(rfc, stage)(ref.bctx, ref.ct if stage == "mod_raise" else ref.s.raised)
         assert _stream(tt) == _stream(rt) and tc == rc, stage

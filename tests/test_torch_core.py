@@ -10,6 +10,7 @@ both key-switch pipelines.  The workload streams themselves are held in
 ``tests/test_torch_planner.py``."""
 
 import collections
+import dataclasses
 import importlib.util
 import operator
 import pathlib
@@ -217,8 +218,8 @@ def test_planner_hoisted_group_matches_execution(ckks, backend, fused):
 @pytest.mark.parametrize("backend,fused", PIPELINES)
 def test_planner_bsgs_matches_execution(ckks, backend, fused, hoisting, hoist):
     p, ctx, a, _, plan = ckks
-    with T_trace.capture_trace() as t:
-        ctx.with_policy(backend=backend, hoisting=hoisting).apply_bsgs(a, plan)
+    with T_trace.capture_trace() as t:  # a fresh copy of the plan: the exec stream encodes every diagonal
+        ctx.with_policy(backend=backend, hoisting=hoisting).apply_bsgs(a, dataclasses.replace(plan))
     want = T_PL.bsgs_matvec(T_PL.PlanParams.of(p), a.level, len(plan.diags), plan.n1,
                             mode="exec", hoist=hoist, fused=fused)
     assert _sig(t) == _sig(want)

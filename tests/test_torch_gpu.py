@@ -360,6 +360,42 @@ def test_eval_poly_builds_its_constants_on_the_card(card, tmp_path):
     assert not [e["name"] for e in device if "ntt_pass" in e["name"]]
 
 
+def test_second_bsgs_application_copies_no_diagonal_to_the_card(card, tmp_path):
+    """A plan applied again at the same level and scale reads its diagonals'
+    plaintexts back from the card: under torch.profiler the second matvec at
+    N = 2^13 opens one ``fhe.bsgs.diag_hit`` span a diagonal and no
+    ``fhe.encode``, issues no host-to-device copy, and gives the first call's
+    ciphertext bit for bit (and the CPU port's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = P.workload_params("lola_mnist_plain")
+    rng = np.random.default_rng(4)
+    diags = {d: rng.normal(size=p.slots) * 0.05 for d in (0, 1, 2, 5, 17, 40)}
+    z = rng.uniform(-0.9, 0.9, size=p.slots)
+    runs = []
+    for device in (card, "cpu"):
+        plan = linear.plan_diags(diags, p, hoisting=True)
+        ks = K.full_keyset(p, seed=0, rotations=tuple(sorted(plan.rotations())), device=device)
+        ctx = FheContext(params=p, keys=ks, device=device)
+        ct = ctx.encrypt(ctx.encode(z))
+        runs.append((ctx, plan, ct, ctx.apply_bsgs(ct, plan)))
+    (ctx, plan, ct, first), (*_, want) = runs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = ctx.apply_bsgs(ct, plan)
+        torch.cuda.synchronize()
+    for got in (first, again):
+        assert torch.equal(got.c0.cpu(), want.c0) and torch.equal(got.c1.cpu(), want.c1)
+        assert (got.level, got.scale) == (want.level, want.scale)
+
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = [e for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert spans.count("fhe.bsgs.diag_hit") == len(diags) and "fhe.encode" not in spans
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert not [e["name"] for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+
+
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "phi-3-vision-4.2b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
                                   "mamba2-1.3b", "smollm-135m", "granite-20b", "qwen1.5-110b", "phi3-medium-14b",
                                   "whisper-medium"])

@@ -1,8 +1,8 @@
 """The port's profiler-clock spans (``repro_torch.obs.span``) on the CPU at n = 2^9.
 
 Under ``torch.profiler`` each span is a ``user_annotation`` event of the Chrome
-trace, the events the benchmark's readers take: ``apply_bsgs`` encodes one
-diagonal per ``fhe.encode`` inside its ``fhe.bsgs`` and key-switches once per
+trace, the events the benchmark's readers take: ``apply_bsgs`` of a fresh plan
+encodes one diagonal per ``fhe.encode`` inside its ``fhe.bsgs`` and key-switches once per
 baby group (or baby rotation) and giant rotation; a Chebyshev evaluation shows
 one ``fhe.encode_const`` per ``_encode_const`` call under ``fhe.cheb.basis`` or
 ``fhe.cheb.combine``, each holding one ``fhe.encode.const_column``; a cold
@@ -10,6 +10,7 @@ table cache shows ``fhe.table.*`` spans and a warm one none.  With the profiler 
 ciphertexts, the ``fhe.trace`` streams and the kernel-dispatch counts are the
 same."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -70,12 +71,18 @@ def _inside(inner, outers):
     return any(o[0] <= inner[0] and inner[1] <= o[1] for o in outers)
 
 
+def _fresh(plan):
+    """A copy of ``plan`` that holds no encoded diagonal yet, so that its
+    application encodes every diagonal."""
+    return dataclasses.replace(plan)
+
+
 def _ops(ctx, plan, ct):
     ctx_never = ctx.with_policy(ExecPolicy(hoisting="never"))
     coeffs = polyeval.chebyshev_fit(np.sin, 6)
     return {
-        "bsgs.auto": lambda: ctx.apply_bsgs(ct, plan),
-        "bsgs.never": lambda: ctx_never.apply_bsgs(ct, plan),
+        "bsgs.auto": lambda: ctx.apply_bsgs(ct, _fresh(plan)),
+        "bsgs.never": lambda: ctx_never.apply_bsgs(ct, _fresh(plan)),
         "eval_poly": lambda: ctx.eval_poly(ct, coeffs),
         "mul": lambda: ctx.mul(ct, ct),
         "rotate": lambda: ctx.rotate(ct, 3),
@@ -86,7 +93,7 @@ def _ops(ctx, plan, ct):
 def test_bsgs_encodes_each_diagonal_inside_its_span(setup, tmp_path, hoisting, baby_switches):
     ctx, plan, ct = setup
     ctx = ctx.with_policy(ExecPolicy(hoisting=hoisting))
-    _, spans = _spans(lambda: ctx.apply_bsgs(ct, plan), tmp_path / "t.json")
+    _, spans = _spans(lambda: ctx.apply_bsgs(ct, _fresh(plan)), tmp_path / "t.json")
     bsgs = _named(spans, "fhe.bsgs")
     encodes = _named(spans, "fhe.encode")
     assert len(bsgs) == 1 and len(encodes) == len(DIAGS)
