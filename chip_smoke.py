@@ -52,7 +52,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            reference's digest and every decoded integer against the
            negacyclic oracle mod t;
        3g. the multi-job executor: 8 jobs of ``ctx.mul`` at ``matmul`` over 8
-           affiliations, one CUDA stream each, from cold table caches; each
+           affiliations, one CUDA stream each, from cold tables (the side
+           streams build them), no table built by a later fan-out; each
            job against its lone ``ctx.mul`` and the reference's digest, the
            kernels of the profiler's trace on ≥ 8 distinct streams, and the
            host time of the 8 jobs on 8 streams against 1 stream;
@@ -1578,12 +1579,11 @@ def phases() -> int:
     """Phases 1–4."""
     from repro_torch.core import executor as E
     from repro_torch.fhe import keys as K
-    from repro_torch.fhe import keyswitch, linear
-    from repro_torch.fhe import ops as fhe_ops
+    from repro_torch.fhe import linear
     from repro_torch.fhe import params as P
     from repro_torch.fhe import poly, rns
     from repro_torch.fhe.context import ExecPolicy, FheContext
-    from repro_torch.kernels import cuda, dispatch
+    from repro_torch.kernels import cuda, dispatch, tables
     from repro_torch.kernels.bconv import ops as bops
     from repro_torch.kernels.bconv import ref as bref
     from repro_torch.kernels.fusedks import ops as fops
@@ -2211,13 +2211,9 @@ def phases() -> int:
     with dispatch.count_dispatches() as one:
         ctx.mul(*pairs[0])
     lone = [digest(ctx.mul(*pr)) for pr in pairs]  # each job alone, on the default stream
-    # every table cache cold: the executor builds them on the caller's stream
-    # before the fan-out, so no side stream may build one
-    caches = (nops.kernel_tables, mops._constants, bops._table, keyswitch._limb_column, fhe_ops._rescale_tables)
-    for cache in caches:
-        cache.cache_clear()
-    E._upload_tables(p, p.L, pairs[0][0].c0.device)
-    cold_misses = [c.cache_info().misses for c in caches]
+    # every table dropped: the first fan-out builds what it reads on the side
+    # streams, each table complete before any stream reads it (kernels.tables)
+    tables.clear()
     streams = E.affiliation_streams(n_aff, DEVICE)
     run8 = lambda: E.parallel_shallow_mul(p, ks, pairs, streams, DEVICE)
     one_stream = E.affiliation_streams(1, DEVICE)
@@ -2227,7 +2223,7 @@ def phases() -> int:
     with dispatch.count_dispatches() as counts:
         outs = timed(steps, f"{n_jobs} jobs on {n_aff} streams (first)", run8)
     paths[f"executor {n_jobs} jobs"] = launched = read_launches()
-    table_misses = [c.cache_info().misses - m for c, m in zip(caches, cold_misses)]
+    cold_builds = tables.builds()
     for i, (label, fn) in enumerate(((f"{n_aff} streams", run8), ("1 stream", run1), ("1 stream", run1),
                                      (f"{n_aff} streams", run8))):
         timed(steps, f"{n_jobs} jobs on {label} #{i + 1}", fn)  # in turns
@@ -2237,7 +2233,7 @@ def phases() -> int:
     print(f"  levels {sorted({o.level for o in outs})} digests " + " ".join(d[:12] for d in digests))
     print(f"  dispatches {dict(counts)} (one staged ctx.mul: {dict(one)}) launches {launched}")
     print(f"  kernels by CUDA stream (profiler trace): {dict(sorted(by_stream.items()))}; "
-          f"table builds during the fan-out: {table_misses}")
+          f"table builds in the first fan-out: {cold_builds}, in the later ones: {tables.builds() - cold_builds}")
     problems = []
     if digests != list(EXECUTOR["digests"]) or digests[0] != REFERENCE["matmul"]["digest"]:
         problems.append(f"digests {digests} != reference {list(EXECUTOR['digests'])}")
@@ -2247,8 +2243,10 @@ def phases() -> int:
         problems.append(f"dispatches {dict(counts)} != {n_jobs} × {dict(one)}")
     if launched != launches_of(counts) or min(launched[k] for k in ("modops", "ntt", "bconv")) < 1:
         problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
-    if any(table_misses):
-        problems.append(f"tables were built during the fan-out: {table_misses}")
+    if cold_builds == 0:
+        problems.append("the first fan-out built no table")
+    if tables.builds() != cold_builds:
+        problems.append(f"the later fan-outs built {tables.builds() - cold_builds} tables")
     if len(by_stream) < n_aff:
         problems.append(f"kernels ran on {len(by_stream)} CUDA streams, not ≥ {n_aff}: {by_stream}")
     if problems:

@@ -12,10 +12,9 @@ with ``device="cpu"``, the affiliations run one after another.
 Stream hazards, and what this module does about each:
 
   * device tables (NTT twiddles, Montgomery constants, BConv tables, per-limb
-    columns, the rescale's moduli) are built lazily and cached per device;
-    ``_upload_tables`` builds every one a staged multiply reads on the
-    caller's stream before the fan-out, so no side stream creates a table
-    that another reads;
+    columns, the rescale's moduli) are built lazily, complete before their
+    builder returns, and never freed (``kernels.tables``), so a side stream may
+    build one that another stream then reads;
   * each side stream waits for the caller's stream before it reads the jobs'
     inputs;
   * the caller's stream waits for every side stream before returning, and
@@ -37,16 +36,12 @@ from __future__ import annotations
 import collections
 import contextlib
 
-import numpy as np
 import torch
 
-from repro_torch.fhe import keyswitch, ops, poly
+from repro_torch.fhe import ops
 from repro_torch.fhe.context import ExecPolicy, FheContext
 from repro_torch.fhe.keys import KeySet
 from repro_torch.fhe.params import CkksParams
-from repro_torch.kernels.bconv import ops as bconv_ops
-from repro_torch.kernels.modops import ops as modops
-from repro_torch.kernels.ntt import ops as ntt_ops
 
 N_AFFILIATIONS = 8  # FLASH-FHE's clusters form 8 affiliations
 
@@ -60,29 +55,6 @@ def affiliation_streams(n_groups: int = N_AFFILIATIONS, device="cuda") -> list[t
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"affiliation streams on {dev} need a CUDA card; pass device='cpu' for the CPU")
     return [torch.cuda.Stream(device=dev) for _ in range(n_groups)]
-
-
-def _upload_tables(params: CkksParams, level: int, device: torch.device) -> None:
-    """Build, on the current stream, every device table that a staged
-    ``ctx.mul`` (rescale included) at ``level`` reads from the caches."""
-    q, ext, p = poly.q_idx(params, level), poly.ext_idx(params, level), poly.p_idx(params)
-    for idx in (q, ext, p, (level,), poly.q_idx(params, level - 1)):
-        ntt_ops.kernel_tables(poly.plan_for(params, idx), len(idx), device)
-    moduli = [poly.primes_for(params, idx) for idx in (q, ext, p, poly.q_idx(params, level - 1))]
-    for j in range(params.beta(level)):
-        digit_idx, bhat_inv, w, dst = keyswitch._digit_tables(params, level, j)
-        moduli.append(poly.primes_for(params, digit_idx))
-        keyswitch._limb_column(tuple(int(c) for c in bhat_inv), device)
-        bconv_ops._table(np.ascontiguousarray(np.asarray(w, np.uint64)).tobytes(), len(digit_idx),
-                         tuple(int(c) for c in dst), device)
-    bhat_inv, w, q_primes, pinv = keyswitch._moddown_tables(params, level)
-    for consts in (bhat_inv, pinv):
-        keyswitch._limb_column(tuple(int(c) for c in consts), device)
-    bconv_ops._table(np.ascontiguousarray(np.asarray(w, np.uint64)).tobytes(), params.alpha,
-                     tuple(int(c) for c in q_primes), device)
-    for qs in moduli:
-        modops._constants(tuple(int(c) for c in qs), device)
-    ops._rescale_tables(int(params.q_primes[level]), ops._qs(params, level - 1), device)
 
 
 def parallel_shallow_mul(
@@ -110,9 +82,7 @@ def parallel_shallow_mul(
     per = n_jobs // n_aff
     on_card = ctx.device.type == "cuda"
     if on_card:
-        dev = pairs[0][0].c0.device  # the caches key on the tensors' device, index included
-        caller = torch.cuda.current_stream(dev)
-        _upload_tables(params, level, dev)
+        caller = torch.cuda.current_stream(pairs[0][0].c0.device)
     outs = []
     for i, stream in enumerate(affiliations):
         if on_card:

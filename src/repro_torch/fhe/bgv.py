@@ -198,16 +198,16 @@ def _relin(ctx, d2, rlk: SwitchingKey, level: int):
     of t, so the key-switch error lands entirely in the t·e slot."""
     params = ctx.params
     t = _t(params)
-    bk = ctx.backend
+    fused = ctx.plan_fused
     ksk_sel = keyswitch._select_ksk(rlk, params, level, params.beta(level))
-    acc0, acc1 = keyswitch.key_switch_accumulate(d2, params, level, ksk_sel, bk)
+    acc0, acc1 = keyswitch.key_switch_accumulate(d2, params, level, ksk_sel, fused)
 
     ext_primes = poly.primes_for(params, poly.ext_idx(params, level))
     tinv_ext = [pow(t, -1, int(p)) for p in ext_primes]
     acc0 = keyswitch._scale_limbs(acc0, tinv_ext, ext_primes)
     acc1 = keyswitch._scale_limbs(acc1, tinv_ext, ext_primes)
 
-    ks0, ks1 = keyswitch.mod_down_pair(acc0, acc1, params, level, bk)
+    ks0, ks1 = keyswitch.mod_down_pair(acc0, acc1, params, level, fused)
 
     qs = _qs(params, level)
     t_q = [t] * (level + 1)  # t < 2^31 ⇒ [t]_q = t
@@ -260,7 +260,7 @@ def _mod_switch(ctx, ct: BgvCiphertext) -> BgvCiphertext:
     qs_rem = _qs(params, lv - 1)
     tinv = pow(t, -1, q_last)
     # the remaining moduli and q_ℓ^{-1} mod each, as (lv, 1) columns: the rescale's tables
-    q_rem, qinv = ops._rescale_tables(q_last, qs_rem, ct.c0.device)
+    q_rem, qinv = ops.rescale_tables(q_last, qs_rem, ct.c0.device)
 
     def _one(c):
         # iNTT the dropped limb, twist by t^{-1}, centre, re-scale by t — the

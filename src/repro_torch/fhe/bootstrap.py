@@ -35,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from . import encoder, keyswitch, linear, ops, poly, polyeval, trace
+from . import encoder, linear, ops, poly, polyeval, trace
 from .keys import KeySet, full_keyset
 from .params import CkksParams
 
@@ -44,7 +44,7 @@ from .params import CkksParams
 def _cts_matrices(n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(A0, A1) coeff-extraction and (E0, E1) slot-restoration matrices."""
     slots = n // 2
-    zeta, s2n, _ = encoder._tables(n)
+    zeta, s2n, _ = encoder.slot_tables(n)
     g = 2 * s2n + 1  # generator exponents
     i0 = np.arange(slots)
     E0 = np.exp(1j * np.pi * np.outer(g, i0) / n)  # (slots, slots): ζ^{g_j·i}
@@ -144,7 +144,7 @@ def _mod_raise(fc, bctx: BootstrapContext, ct: ops.Ciphertext) -> ops.Ciphertext
     q0 = int(params.q_primes[0])
     L = params.L
     trace.record("MODRAISE", params.n, L + 1)
-    chain = keyswitch._limb_column(params.q_primes, ct.c0.device)  # (L+1, 1), cached per device
+    chain = poly.limb_column(params.q_primes, torch.int32, ct.c0.device)  # (L+1, 1), a table
 
     def raise_poly(c_eval):
         v = poly.to_coeff(c_eval, params, (0,))[0].long()  # (N,) residues mod q0

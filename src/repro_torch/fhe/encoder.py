@@ -13,15 +13,15 @@ permutation on top.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
+
+from repro_torch.kernels.tables import table
 
 from . import rns
 
 
-@functools.lru_cache(maxsize=16)
-def _tables(n: int):
+@table("encoder_tables")
+def slot_tables(n: int):
     """(zeta_pows, slot_to_nat, conj_to_nat) for ring degree n."""
     i = np.arange(n)
     zeta = np.exp(1j * np.pi * i / n)  # ζ^i, ζ = e^{iπ/N}
@@ -39,7 +39,7 @@ def _tables(n: int):
 def _eval_all_odd(a: np.ndarray) -> np.ndarray:
     """a(ζ^{2k+1}) for k = 0..N-1 from real coefficient vector a (length N)."""
     n = a.shape[-1]
-    zeta, _, _ = _tables(n)
+    zeta, _, _ = slot_tables(n)
     return n * np.fft.ifft(a * zeta)
 
 
@@ -49,7 +49,7 @@ def decode(coeffs_rns: np.ndarray, primes, scale: float, max_limbs: int = 4) -> 
     vals = rns.crt_reconstruct_centered(np.asarray(coeffs_rns), primes, max_limbs=max_limbs)
     a = np.array([float(v) for v in vals]) / scale
     nat = _eval_all_odd(a)
-    _, s2n, _ = _tables(n)
+    _, s2n, _ = slot_tables(n)
     return nat[s2n]
 
 
@@ -59,7 +59,7 @@ def encode_coeffs(z: np.ndarray, n: int, scale: float) -> np.ndarray:
     Shorter vectors are zero-padded (standard sparse packing is NOT applied —
     full-slot packing per the paper's packed bootstrapping).
     """
-    zeta, s2n, c2n = _tables(n)
+    zeta, s2n, c2n = slot_tables(n)
     zfull = np.zeros(n, dtype=np.complex128)
     z = np.asarray(z, dtype=np.complex128).ravel()
     assert z.shape[0] <= n // 2, "too many slots"

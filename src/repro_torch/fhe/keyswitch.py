@@ -20,10 +20,11 @@ Two pipeline shapes execute the same math:
     STORE_WS/LOAD_WS trace records because the intermediate polynomial
     round-trips through device memory between launches.
 
-``backend`` selects the pipeline: "fused"/"kernel" → fused, "staged"/"ref" →
-staged, "auto" → fused on the card and staged on the CPU.  Which code runs each
-stage is decided by the tensors' device alone: the plain PyTorch version on the
-CPU, the CUDA kernel on the card.
+``fused`` selects the pipeline: the context resolves its policy's backend to it
+once (``FheContext.plan_fused``, through ``resolve_pipeline``).  Which code runs
+each stage is decided by the tensors' device alone: the plain PyTorch version
+on the CPU, the CUDA kernel on the card.  The key-switch's RNS constants come
+from ``fhe.rns.digit_tables`` and ``fhe.rns.moddown_tables``.
 
 The hoisted (Halevi–Shoup) helpers at the end split a rotation's key-switch
 into a ModUp shared by every rotation of one ciphertext and a per-rotation
@@ -33,7 +34,6 @@ MAC + ModDown (``repro_torch.kernels.hoistrot``).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -77,38 +77,10 @@ def _boundary(n: int, limbs: int) -> None:
     trace.record("LOAD_WS", n, limbs)
 
 
-@functools.lru_cache(maxsize=2048)
-def _digit_tables(params: CkksParams, level: int, j: int):
-    """(src_idx, bhat_inv, w, dst_primes) for digit j at ``level``."""
-    with span("fhe.table.digit_tables"):
-        digit_idx = tuple(i for i in params.digit(j) if i <= level)
-        src = poly.primes_for(params, digit_idx)
-        dst = poly.primes_for(params, poly.ext_idx(params, level))
-        bhat_inv, w = rns.bconv_tables(src, dst)
-        return digit_idx, bhat_inv, w, dst
-
-
-@functools.lru_cache(maxsize=512)
-def _moddown_tables(params: CkksParams, level: int):
-    with span("fhe.table.moddown_tables"):
-        p_primes = poly.primes_for(params, poly.p_idx(params))
-        q_primes = poly.primes_for(params, poly.q_idx(params, level))
-        bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
-        P = rns.product(p_primes)
-        pinv = np.array([pow(P % q, -1, q) for q in q_primes], np.uint32)
-        return bhat_inv, w, q_primes, pinv
-
-
-@functools.lru_cache(maxsize=2048)
-def _limb_column(consts: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """(k, 1) int32 on ``device``, uploaded once per (constants, device)."""
-    with span("fhe.table.limb_column"):
-        return torch.tensor(consts, dtype=torch.int32, device=device)[:, None]
-
-
 def _per_limb(consts, like: torch.Tensor) -> torch.Tensor:
     """(k,) constants < 2^31 broadcast over ``like``'s (k, N) shape (stride 0 along N)."""
-    return _limb_column(tuple(int(c) for c in np.asarray(consts).reshape(-1)), like.device).expand(like.shape)
+    values = tuple(int(c) for c in np.asarray(consts).reshape(-1))
+    return poly.limb_column(values, torch.int32, like.device).expand(like.shape)
 
 
 def _scale_limbs(x, consts, qs):
@@ -122,8 +94,9 @@ def _select_ksk(ksk: SwitchingKey, params: CkksParams, level: int, beta: int):
     return torch.cat([ksk.k[:, :, : level + 1], ksk.k[:, :, params.L + 1 :]], dim=2)[:beta]
 
 
-def _record_fused_digits(params: CkksParams, level: int) -> None:
-    """Trace the fused per-digit pipeline (planner `key_switch(fused=True)`)."""
+def _record_fused_digits(params: CkksParams, level: int, mac: bool = True) -> None:
+    """Trace the fused per-digit pipeline: planner ``key_switch(fused=True)``,
+    or without the MAC records ``mod_up(fused=True)``."""
     n = params.n
     m = len(poly.ext_idx(params, level))
     for j in range(params.beta(level)):
@@ -131,8 +104,27 @@ def _record_fused_digits(params: CkksParams, level: int) -> None:
         trace.record("PMULT", n, k, fused=True)
         trace.record("BCONV", n, k, dst=m, fused=True)
         trace.record("NTT", n, m, fused=True)
-        trace.record("PMULT", n, 2 * m, mac=True, fused=True)
-        trace.record("PADD", n, 2 * m, mac=True, fused=True)
+        if mac:
+            trace.record("PMULT", n, 2 * m, mac=True, fused=True)
+            trace.record("PADD", n, 2 * m, mac=True, fused=True)
+
+
+def _staged_mod_up(d_coeff, params: CkksParams, level: int):
+    """The staged ModUp, digit by digit: prescale → BConv → NTT into the
+    extended basis, one launch a stage.  Yields each digit's eval-domain
+    polynomial before it converts the next."""
+    n = params.n
+    ext = poly.ext_idx(params, level)
+    m = len(ext)
+    for j in range(params.beta(level)):
+        limbs, src, dst, bhat_inv, w = rns.digit_tables(params, level, j)
+        k = len(limbs)
+        xhat = _scale_limbs(d_coeff[limbs[0] : limbs[-1] + 1], bhat_inv, src)
+        _boundary(n, k)
+        trace.record("BCONV", n, k, dst=m)
+        dj_ext = bconv_ops.bconv(xhat, w, dst)
+        _boundary(n, m)
+        yield poly.to_eval(dj_ext, params, ext)
 
 
 def _record_fused_moddown(params: CkksParams, level: int) -> None:
@@ -155,8 +147,7 @@ def mod_down(acc_ext, params: CkksParams, level: int):
     nq = level + 1
     alpha = params.alpha
     q_part, p_part = acc_ext[:nq], acc_ext[nq:]
-    bhat_inv, w, q_primes, pinv = _moddown_tables(params, level)
-    p_primes = poly.primes_for(params, poly.p_idx(params))
+    p_primes, q_primes, bhat_inv, w, pinv = rns.moddown_tables(params, level)
 
     p_coeff = poly.to_coeff(p_part, params, poly.p_idx(params))
     xhat = _scale_limbs(p_coeff, bhat_inv, p_primes)
@@ -173,10 +164,9 @@ def mod_down(acc_ext, params: CkksParams, level: int):
     return mo.pointwise_mulmod(diff, _per_limb(pinv, diff), q_primes)
 
 
-def mod_down_pair(acc0, acc1, params: CkksParams, level: int, backend: str = "auto"):
+def mod_down_pair(acc0, acc1, params: CkksParams, level: int, fused: bool):
     """ModDown both MAC accumulators; the fused path shares one kernel launch."""
-    pipeline, _ = resolve_pipeline(backend, acc0.device)
-    if pipeline != "fused":
+    if not fused:
         return mod_down(acc0, params, level), mod_down(acc1, params, level)
     nq = level + 1
     _record_fused_moddown(params, level)
@@ -188,23 +178,22 @@ def mod_down_pair(acc0, acc1, params: CkksParams, level: int, backend: str = "au
     return out[0], out[1]
 
 
-def key_switch(d_eval, params: CkksParams, level: int, ksk: SwitchingKey, backend: str = "auto"):
+def key_switch(d_eval, params: CkksParams, level: int, ksk: SwitchingKey, fused: bool):
     """d (eval, basis q_0..q_ℓ) ⊗ s' → (ks0, ks1) eval over q_0..q_ℓ under s."""
     ksk_sel = _select_ksk(ksk, params, level, params.beta(level))
-    return key_switch_selected(d_eval, params, level, ksk_sel, backend)
+    return key_switch_selected(d_eval, params, level, ksk_sel, fused)
 
 
-def key_switch_selected(d_eval, params: CkksParams, level: int, ksk_sel, backend: str = "auto"):
+def key_switch_selected(d_eval, params: CkksParams, level: int, ksk_sel, fused: bool):
     """``key_switch`` over pre-selected key limbs ksk_sel: (β, 2, m, N)."""
-    acc0, acc1 = key_switch_accumulate(d_eval, params, level, ksk_sel, backend)
-    return mod_down_pair(acc0, acc1, params, level, backend)
+    acc0, acc1 = key_switch_accumulate(d_eval, params, level, ksk_sel, fused)
+    return mod_down_pair(acc0, acc1, params, level, fused)
 
 
-def key_switch_accumulate(d_eval, params: CkksParams, level: int, ksk_sel, backend: str = "auto"):
+def key_switch_accumulate(d_eval, params: CkksParams, level: int, ksk_sel, fused: bool):
     """Stages 1–4 of a key switch: decompose d into digits and MAC against the
     key, returning both raw accumulators (eval domain, extended basis Q∪P)
     *before* ModDown."""
-    pipeline, _ = resolve_pipeline(backend, d_eval.device)
     n = params.n
     beta = params.beta(level)
     ext = poly.ext_idx(params, level)
@@ -214,24 +203,14 @@ def key_switch_accumulate(d_eval, params: CkksParams, level: int, ksk_sel, backe
     trace.record("LOAD_KSK", n, beta * 2 * m)
     d_coeff = poly.to_coeff(d_eval, params, poly.q_idx(params, level))
 
-    if pipeline == "fused":
+    if fused:
         # stages 2–4 for all β digits and both key components: ONE launch
         _record_fused_digits(params, level)
         return fused_ops.key_switch_digits(d_coeff, ksk_sel, params, level)
 
     acc0 = torch.zeros((m, n), dtype=torch.int32, device=d_eval.device)
     acc1 = torch.zeros((m, n), dtype=torch.int32, device=d_eval.device)
-    for j in range(beta):
-        digit_idx, bhat_inv, w, dst = _digit_tables(params, level, j)
-        k = len(digit_idx)
-        src = poly.primes_for(params, digit_idx)
-        dj = d_coeff[digit_idx[0] : digit_idx[-1] + 1]
-        xhat = _scale_limbs(dj, bhat_inv, src)
-        _boundary(n, k)
-        trace.record("BCONV", n, k, dst=m)
-        dj_ext = bconv_ops.bconv(xhat, w, dst)
-        _boundary(n, m)
-        dj_eval = poly.to_eval(dj_ext, params, ext)
+    for j, dj_eval in enumerate(_staged_mod_up(d_coeff, params, level)):
         _boundary(n, m)
         trace.record("PMULT", n, 2 * m, mac=True)
         t0 = mo.pointwise_mulmod(dj_eval, ksk_sel[j, 0], ext_primes)
@@ -284,49 +263,21 @@ class HoistedDigits:
         return int(self.digits.shape[0])
 
 
-def _record_modup_digits(params: CkksParams, level: int) -> None:
-    """Trace the fused ModUp pipeline (planner ``mod_up(fused=True)``)."""
-    n = params.n
-    m = len(poly.ext_idx(params, level))
-    for j in range(params.beta(level)):
-        k = len(tuple(i for i in params.digit(j) if i <= level))
-        trace.record("PMULT", n, k, fused=True)
-        trace.record("BCONV", n, k, dst=m, fused=True)
-        trace.record("NTT", n, m, fused=True)
-
-
-def hoisted_mod_up(d_eval, params: CkksParams, level: int, backend: str = "auto") -> HoistedDigits:
+def hoisted_mod_up(d_eval, params: CkksParams, level: int, fused: bool) -> HoistedDigits:
     """ModUp once: d (eval, q_0..q_ℓ) → reusable extended-basis digits.
 
     The returned digits are materialised (they round-trip to the later MAC
     launches — the trace carries one STORE_WS/LOAD_WS pair of β·m limbs),
     amortising the β forward NTTs across every rotation that reuses them.
     """
-    pipeline, _ = resolve_pipeline(backend, d_eval.device)
-    n = params.n
-    beta = params.beta(level)
-    ext = poly.ext_idx(params, level)
-    m = len(ext)
     d_coeff = poly.to_coeff(d_eval, params, poly.q_idx(params, level))
-
-    if pipeline == "fused":
-        _record_modup_digits(params, level)
+    if fused:
+        _record_fused_digits(params, level, mac=False)
         digits = hoist_ops.mod_up_digits(d_coeff, params, level)
     else:
-        rows = []
-        for j in range(beta):
-            digit_idx, bhat_inv, w, dst = _digit_tables(params, level, j)
-            k = len(digit_idx)
-            src = poly.primes_for(params, digit_idx)
-            dj = d_coeff[digit_idx[0] : digit_idx[-1] + 1]
-            xhat = _scale_limbs(dj, bhat_inv, src)
-            _boundary(n, k)
-            trace.record("BCONV", n, k, dst=m)
-            dj_ext = bconv_ops.bconv(xhat, w, dst)
-            _boundary(n, m)
-            rows.append(poly.to_eval(dj_ext, params, ext))
-        digits = torch.stack(rows)
-    _boundary(n, beta * m)  # hoisted digits round-trip to the MAC launches
+        digits = torch.stack(list(_staged_mod_up(d_coeff, params, level)))
+    # the hoisted digits round-trip to the MAC launches
+    _boundary(params.n, params.beta(level) * len(poly.ext_idx(params, level)))
     return HoistedDigits(digits=digits, level=level)
 
 
@@ -364,18 +315,16 @@ def hoisted_ksk(params: CkksParams, keys: KeySet, t: int, level: int):
         return pre
 
 
-def hoisted_galois_ks(hd: HoistedDigits, ksk_stack, params: CkksParams, level: int, backend: str = "auto"):
+def hoisted_galois_ks(hd: HoistedDigits, ksk_stack, params: CkksParams, level: int, fused: bool):
     """KSK inner products for a whole rotation group, σ_t^{-1} frame.
 
     ksk_stack: (R, β, 2, m, N) pre-permuted key limbs (``hoisted_ksk``).
     Returns (R, 2, m, N) accumulator pairs; the fused pipeline issues ONE
     batched MAC launch that reads the hoisted digits once.
     """
-    pipeline, _ = resolve_pipeline(backend, hd.digits.device)
     n = params.n
     beta = params.beta(level)
     m = int(hd.digits.shape[1])
-    fused = pipeline == "fused"
     for _ in range(ksk_stack.shape[0]):
         trace.record("LOAD_KSK", n, beta * 2 * m)
         for _j in range(beta):
@@ -386,15 +335,14 @@ def hoisted_galois_ks(hd: HoistedDigits, ksk_stack, params: CkksParams, level: i
     return hoist_ops.galois_mac(hd.digits, ksk_stack, params, level, staged=not fused)
 
 
-def mod_down_group(accs, params: CkksParams, level: int, backend: str = "auto"):
+def mod_down_group(accs, params: CkksParams, level: int, fused: bool):
     """ModDown every accumulator pair of a hoisted group.
 
     accs: (R, 2, m, N) → (R, 2, level+1, N).  The fused pipeline batches all
     2·R tails through ONE P-block iNTT + ONE ModDown launch.
     """
-    pipeline, _ = resolve_pipeline(backend, accs.device)
     nrot = accs.shape[0]
-    if pipeline != "fused":
+    if not fused:
         return torch.stack([
             torch.stack([mod_down(accs[i, c], params, level) for c in range(2)])
             for i in range(nrot)
@@ -428,7 +376,7 @@ def permute_last(c0_eval, ks0, ks1, t: int, params: CkksParams, level: int):
 
 
 def rotate_hoisted(c0_eval, hd: HoistedDigits, t: int, keys: KeySet, params: CkksParams, level: int,
-                   backend: str = "auto"):
+                   fused: bool):
     """One key-switched automorphism σ_t over a hoisted decomposition.
 
     Runs only KSK-MAC + ModDown (+ the folded automorphism) — the expensive
@@ -437,6 +385,6 @@ def rotate_hoisted(c0_eval, hd: HoistedDigits, t: int, keys: KeySet, params: Ckk
     un-hoisted rotation.
     """
     ksk_stack = hoisted_ksk(params, keys, t, level)[None]
-    accs = hoisted_galois_ks(hd, ksk_stack, params, level, backend)
-    ks = mod_down_group(accs, params, level, backend)
+    accs = hoisted_galois_ks(hd, ksk_stack, params, level, fused)
+    ks = mod_down_group(accs, params, level, fused)
     return permute_last(c0_eval, ks[0, 0], ks[0, 1], t, params, level)

@@ -7,18 +7,18 @@ slot j of the result is the evaluation a(psi^(2j+1)) (natural order).
 A plan holds, per limb, exactly the tables the radix-2 butterfly NTT needs —
 the twist powers, the cyclic root powers and the Montgomery constants — and is
 shared by the plain PyTorch version (``repro_torch.kernels.ntt.ref``) and the
-CUDA kernel (``csrc/ntt.cu``).  Plans are cached per (N, primes); all tables
-are host numpy, and ``repro_torch.kernels.ntt.ops`` moves them to a device once.
+CUDA kernel (``csrc/ntt.cu``).  Plans are tables (``kernels.tables``) per
+(N, primes); all their arrays are host numpy, and ``repro_torch.kernels.ntt.ops``
+moves them to a device once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 
-from repro_torch.obs.spans import span
+from repro_torch.kernels.tables import table
 
 from . import modmath as mm
 
@@ -70,7 +70,7 @@ class NttPlan:
         return len(self.qs)
 
 
-@functools.lru_cache(maxsize=32)
+@table("build_plan")
 def build_plan(n: int, primes: tuple[int, ...]) -> NttPlan:
     assert n >= 2 and n & (n - 1) == 0, f"N={n} must be a power of two"
     L = len(primes)
@@ -104,23 +104,21 @@ def build_plan(n: int, primes: tuple[int, ...]) -> NttPlan:
 _PER_LIMB_FIELDS = ("qs", "qinv_neg", "r2", "w_pows", "winv_pows", "psi_pows", "psiinv_ninv")
 
 
-@functools.lru_cache(maxsize=1024)
 def subplan(n: int, primes: tuple[int, ...], idx: tuple[int, ...]) -> NttPlan:
     """A view of build_plan(n, primes) restricted to the limb subset ``idx``.
 
     Ciphertexts live on arbitrary sub-chains of the master prime chain (levels,
     key-switch digits, the special-modulus block); this selects the matching
-    rows of every per-limb table.  Cached — the set of distinct subsets during a
-    workload is O(L·dnum).
+    rows of every per-limb table.  ``fhe.poly.plan_for`` keeps each one — the
+    set of distinct subsets during a workload is O(L·dnum).
     """
-    with span("fhe.table.ntt_subplan"):
-        base = build_plan(n, primes)
-        sel = np.array(idx, np.int64)
-        return dataclasses.replace(
-            base,
-            primes=tuple(base.primes[i] for i in idx),
-            **{f: getattr(base, f)[sel] for f in _PER_LIMB_FIELDS},
-        )
+    base = build_plan(n, primes)
+    sel = np.array(idx, np.int64)
+    return dataclasses.replace(
+        base,
+        primes=tuple(base.primes[i] for i in idx),
+        **{f: getattr(base, f)[sel] for f in _PER_LIMB_FIELDS},
+    )
 
 
 def galois_eval_perm(n: int, t: int) -> np.ndarray:

@@ -11,12 +11,12 @@ are the public API.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.modops import ops as mo
+from repro_torch.kernels.tables import table
 from repro_torch.obs.spans import span
 
 from . import encoder, keyswitch, poly, trace
@@ -69,13 +69,6 @@ def _encode(ctx, z, level: int | None = None, scale: float | None = None) -> Pla
         return Plaintext(data=data, level=level, scale=scale)
 
 
-@functools.lru_cache(maxsize=512)
-def _moduli_column(qs: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """The moduli as an (l, 1) int64 column, uploaded once per (moduli, device)."""
-    with span("fhe.table.moduli_column"):
-        return torch.as_tensor(np.array(qs, np.int64)[:, None], device=device)
-
-
 def _encode_const(ctx, c, level: int, scale: float) -> Plaintext:
     """A real constant c encodes to the polynomial round(c·scale), whose NTT
     is that integer's residue in every slot of a limb: the eval-domain
@@ -89,7 +82,7 @@ def _encode_const(ctx, c, level: int, scale: float) -> Plaintext:
         v = encoder.const_integer(c, scale)
         if v is not None and abs(v) < 1 << 62:
             with span("fhe.encode.const_column"):
-                q = _moduli_column(qs, ctx.device)
+                q = poly.limb_column(qs, torch.int64, ctx.device)
                 col = torch.remainder(torch.full_like(q, v), q).to(torch.int32)
             return Plaintext(data=col.expand(level + 1, params.n), level=level, scale=scale)
         with span("fhe.encode.coeffs"):
@@ -256,7 +249,7 @@ def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bo
     trace.record("PADD", params.n, lv + 1)
     d1 = mo.pointwise_addmod(cross1, cross2, qs)
     with span("fhe.keyswitch"):
-        ks0, ks1 = keyswitch.key_switch(d2, params, lv, rlk, ctx.backend)
+        ks0, ks1 = keyswitch.key_switch(d2, params, lv, rlk, ctx.plan_fused)
     trace.record("PADD", params.n, 2 * (lv + 1))
     out = Ciphertext(
         c0=mo.pointwise_addmod(d0, ks0, qs),
@@ -266,13 +259,12 @@ def _mul(ctx, a: Ciphertext, b: Ciphertext, rlk: SwitchingKey, rescale_after: bo
     return _rescale(ctx, out) if rescale_after else out
 
 
-@functools.lru_cache(maxsize=512)
-def _rescale_tables(q_last: int, qs_rem: tuple[int, ...], device: torch.device):
-    """The remaining moduli's column and q_last^{-1} mod each (l, 1) int32,
-    uploaded once per (moduli, device)."""
-    with span("fhe.table.rescale_tables"):
-        qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
-        return _moduli_column(qs_rem, device), torch.as_tensor(qinv[:, None], device=device)
+@table("rescale_tables")
+def rescale_tables(q_last: int, qs_rem: tuple[int, ...], device: torch.device):
+    """The remaining moduli's (l, 1) int64 column and q_last^{-1} mod each,
+    an (l, 1) int32 column, on ``device``."""
+    qinv = np.array([pow(q_last % q, -1, q) for q in qs_rem], np.int32)
+    return poly.limb_column(qs_rem, torch.int64, device), torch.as_tensor(qinv[:, None], device=device)
 
 
 def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
@@ -282,7 +274,7 @@ def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
     assert lv >= 1, "cannot rescale at level 0"
     q_last = int(params.q_primes[lv])
     qs_rem = _qs(params, lv - 1)
-    q_rem, qinv_t = _rescale_tables(q_last, qs_rem, ct.c0.device)
+    q_rem, qinv_t = rescale_tables(q_last, qs_rem, ct.c0.device)
 
     def _one(c):
         # iNTT the dropped limb, re-embed its (centred) coefficients in every
@@ -346,8 +338,8 @@ def _rotate_hoisted(ctx, ct: Ciphertext, r: int, keys: KeySet,
         return ct
     t = pow(5, r % params.slots, 2 * params.n)
     with span("fhe.keyswitch"):
-        hd = hoisted if hoisted is not None else keyswitch.hoisted_mod_up(ct.c1, params, ct.level, ctx.backend)
-        c0, c1 = keyswitch.rotate_hoisted(ct.c0, hd, t, keys, params, ct.level, ctx.backend)
+        hd = hoisted if hoisted is not None else keyswitch.hoisted_mod_up(ct.c1, params, ct.level, ctx.plan_fused)
+        c0, c1 = keyswitch.rotate_hoisted(ct.c0, hd, t, keys, params, ct.level, ctx.plan_fused)
     return Ciphertext(c0=c0, c1=c1, level=ct.level, scale=ct.scale)
 
 
@@ -361,7 +353,7 @@ def _rotate_hoisted_group(ctx, ct: Ciphertext, rots, keys: KeySet) -> dict[int, 
     entry is bit-exact vs ``rotate``.
     """
     params = ctx.params
-    backend = ctx.backend
+    fused = ctx.plan_fused
     uniq: dict[int, int] = {}  # r mod slots → galois element
     for r in rots:
         rm = r % params.slots
@@ -372,10 +364,10 @@ def _rotate_hoisted_group(ctx, ct: Ciphertext, rots, keys: KeySet) -> dict[int, 
     lv = ct.level
     by_rm: dict[int, Ciphertext] = {}
     with span("fhe.keyswitch"):
-        hd = keyswitch.hoisted_mod_up(ct.c1, params, lv, backend)
+        hd = keyswitch.hoisted_mod_up(ct.c1, params, lv, fused)
         ksk_stack = torch.stack([keyswitch.hoisted_ksk(params, keys, t, lv) for t in uniq.values()])
-        accs = keyswitch.hoisted_galois_ks(hd, ksk_stack, params, lv, backend)
-        ks = keyswitch.mod_down_group(accs, params, lv, backend)
+        accs = keyswitch.hoisted_galois_ks(hd, ksk_stack, params, lv, fused)
+        ks = keyswitch.mod_down_group(accs, params, lv, fused)
         for i, (rm, t) in enumerate(uniq.items()):
             c0, c1 = keyswitch.permute_last(ct.c0, ks[i, 0], ks[i, 1], t, params, lv)
             by_rm[rm] = Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)
@@ -400,6 +392,6 @@ def _apply_galois(ctx, ct: Ciphertext, t: int, keys: KeySet) -> Ciphertext:
     lv = ct.level
     with span("fhe.keyswitch"):
         ksk_pre = keyswitch.hoisted_ksk(params, keys, t, lv)
-        ks0, ks1 = keyswitch.key_switch_selected(ct.c1, params, lv, ksk_pre, ctx.backend)
+        ks0, ks1 = keyswitch.key_switch_selected(ct.c1, params, lv, ksk_pre, ctx.plan_fused)
         c0, c1 = keyswitch.permute_last(ct.c0, ks0, ks1, t, params, lv)
     return Ciphertext(c0=c0, c1=c1, level=lv, scale=ct.scale)

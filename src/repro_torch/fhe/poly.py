@@ -3,7 +3,8 @@
 A polynomial is a (limbs, N) int32 tensor of RNS residues, either in
 coefficient domain or evaluation (NTT) domain.  Which master-chain limbs a
 tensor carries is tracked by the caller via index tuples from `q_idx`/`ext_idx`;
-NTT plans restricted to those limbs come from `fhe.ntt.subplan`.
+NTT plans restricted to those limbs come from `plan_for`.  The tables here
+(`plan_for`, `eval_perm`, `limb_column`) are kept by `kernels.tables`.
 
 Every domain crossing records an instruction into the ambient trace, as in
 the reference package.
@@ -11,13 +12,11 @@ the reference package.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from repro_torch.kernels.ntt import ops as ntt_ops
-from repro_torch.obs.spans import span
+from repro_torch.kernels.tables import table
 
 from . import ntt as nttmod
 from . import trace
@@ -39,15 +38,22 @@ def ext_idx(params: CkksParams, level: int) -> tuple[int, ...]:
     return q_idx(params, level) + p_idx(params)
 
 
-@functools.lru_cache(maxsize=4096)
+@table("plan_for")
 def plan_for(params: CkksParams, idx: tuple[int, ...]) -> nttmod.NttPlan:
-    with span("fhe.table.plan_for"):
-        return nttmod.subplan(params.n, params.all_primes, idx)
+    """The NTT plan of the master-chain limbs ``idx``."""
+    return nttmod.subplan(params.n, params.all_primes, idx)
 
 
 def primes_for(params: CkksParams, idx: tuple[int, ...]) -> tuple[int, ...]:
     allp = params.all_primes
     return tuple(allp[i] for i in idx)
+
+
+@table("limb_column")
+def limb_column(values: tuple[int, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """One integer per limb as a (k, 1) ``dtype`` column on ``device``: per-limb
+    constants, or the moduli themselves."""
+    return torch.tensor(values, dtype=dtype, device=device)[:, None]
 
 
 def residues(a: np.ndarray, device) -> torch.Tensor:
@@ -67,10 +73,9 @@ def to_coeff(x: torch.Tensor, params: CkksParams, idx: tuple[int, ...]) -> torch
     return ntt_ops.ntt_inv(x, plan_for(params, idx))
 
 
-@functools.lru_cache(maxsize=512)
+@table("eval_perm")
 def _eval_perm(n: int, t: int, device: torch.device) -> torch.Tensor:
-    with span("fhe.table.eval_perm"):
-        return torch.from_numpy(nttmod.galois_eval_perm(n, t).astype(np.int64)).to(device)
+    return torch.from_numpy(nttmod.galois_eval_perm(n, t).astype(np.int64)).to(device)
 
 
 def eval_perm(n: int, t: int, device) -> torch.Tensor:

@@ -2,13 +2,18 @@
 
 All functions here are host-side Python-int exact computations producing small
 numpy tables; the heavy per-coefficient work happens in repro_torch.kernels.
+``digit_tables`` and ``moddown_tables`` are the one source of a key-switch's
+B̂⁻¹, W and P⁻¹: the staged pipeline, the plain versions of the fused kernels
+and the kernels' device tables all read them.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
+
+from repro_torch.kernels.tables import table
+
+from .params import CkksParams
 
 
 def product(primes) -> int:
@@ -18,7 +23,7 @@ def product(primes) -> int:
     return out
 
 
-@functools.lru_cache(maxsize=512)
+@table("bconv_tables")
 def bconv_tables(src: tuple[int, ...], dst: tuple[int, ...]):
     """Tables for Conv_{src→dst}.
 
@@ -30,6 +35,27 @@ def bconv_tables(src: tuple[int, ...], dst: tuple[int, ...]):
     bhat_inv = np.array([pow(B // b, -1, b) for b in src], np.uint32)
     w = np.array([[(B // b) % c for c in dst] for b in src], np.uint32)
     return bhat_inv, w
+
+
+@table("digit_tables")
+def digit_tables(params: CkksParams, level: int, j: int):
+    """Digit j of a key-switch at ``level``: (its q limbs, their primes, the
+    extended basis q_0..q_level ∪ P, bhat_inv, w) — ``bconv_tables`` of the
+    digit's primes to the extended basis."""
+    limbs = tuple(i for i in params.digit(j) if i <= level)
+    src = tuple(params.q_primes[i] for i in limbs)
+    dst = params.q_primes[: level + 1] + params.p_primes
+    return (limbs, src, dst, *bconv_tables(src, dst))
+
+
+@table("moddown_tables")
+def moddown_tables(params: CkksParams, level: int):
+    """ModDown at ``level``: (p primes, q primes, bhat_inv, w, pinv) —
+    ``bconv_tables`` of P to q_0..q_level and pinv[e] = [P⁻¹]_{q_e}, uint32."""
+    p_primes, q_primes = params.p_primes, params.q_primes[: level + 1]
+    P = product(p_primes)
+    pinv = np.array([pow(P % q, -1, q) for q in q_primes], np.uint32)
+    return (p_primes, q_primes, *bconv_tables(p_primes, q_primes), pinv)
 
 
 def crt_reconstruct_centered(residues: np.ndarray, primes, max_limbs: int = 4) -> np.ndarray:
@@ -51,18 +77,8 @@ def crt_reconstruct_centered(residues: np.ndarray, primes, max_limbs: int = 4) -
     return np.where(acc > Q // 2, acc - Q, acc)
 
 
-def to_rns(values: np.ndarray, primes) -> np.ndarray:
-    """Signed integer coefficients (object/int64) → (k, N) uint32 residues."""
-    out = np.zeros((len(primes), values.shape[-1]), np.uint32)
-    for i, p in enumerate(primes):
-        p = int(p)
-        r = np.mod(values.astype(object), p)  # python % is non-negative
-        out[i] = np.array([int(v) for v in r], np.uint32)
-    return out
-
-
 def to_rns_i64(values: np.ndarray, primes) -> np.ndarray:
-    """Fast path for int64-range coefficients."""
+    """Int64-range coefficients → (k, N) uint32 residues."""
     v = values.astype(np.int64)
     out = np.zeros((len(primes), v.shape[-1]), np.uint32)
     for i, p in enumerate(primes):

@@ -11,13 +11,11 @@ products P_ab = Σ_s byte_a(x̂[s])·byte_b(W[s, j]) and reduces each output onc
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from repro_torch.fhe import modmath as mm
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, tables
 from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, pass_blocks, ptr, u32_tensor
 
 from . import ref as _ref
@@ -62,8 +60,9 @@ def table(w: np.ndarray, cs) -> np.ndarray:
     return np.concatenate([b_words(w).reshape(m, -1).astype(np.uint64), tail], axis=1).astype(np.uint32)
 
 
-@functools.lru_cache(maxsize=1024)
-def _table(w_bytes: bytes, k: int, cs: tuple[int, ...], device: torch.device) -> torch.Tensor:
+@tables.table("bconv_table")
+def device_table(w_bytes: bytes, k: int, cs: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``table`` of W (k, len(cs)) uint64, given as its bytes, on ``device``."""
     return u32_tensor(table(np.frombuffer(w_bytes, np.uint64).reshape(k, len(cs)), cs), device)
 
 
@@ -86,7 +85,7 @@ def bconv(xhat, w, cs):
     if not 1 <= k <= MAX_K or n % COEFFS:
         raise ValueError(f"bconv kernel takes 1 ≤ k ≤ {MAX_K} source limbs and N a multiple of {COEFFS}, "
                          f"got k = {k}, N = {n}")
-    tab = _table(w.tobytes(), k, cs, dev)
+    tab = device_table(w.tobytes(), k, cs, dev)
     out = torch.empty((len(cs), n), dtype=torch.int32, device=dev)
     KERNEL.launch(dev, ptr(xhat), k, ptr(tab), len(cs), ptr(out), n)
     return out

@@ -9,14 +9,12 @@ its C entry in ``csrc/fusedks.cu`` — ``fused_ks_launch`` and
 blocks per limb) — and counts one launch; on a CPU tensor the plain staged
 composition in ``ref`` runs.  Either way each call records one dispatch.
 
-Tables are cached per (params, level, device): the per-limb prescale
-constants and BConv weights in Montgomery form, and the NTT tables of the
+Tables are kept per (params, level, device) (``kernels.tables``): the Montgomery
+forms of ``fhe.rns.digit_tables``/``moddown_tables``, and the NTT tables of the
 target basis.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -27,7 +25,7 @@ from repro_torch.fhe.params import CkksParams
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, mont_form, pass_blocks, ptr, u32_tensor
 from repro_torch.kernels.ntt import ops as ntt_ops
-from repro_torch.obs.spans import span
+from repro_torch.kernels.tables import table
 
 from . import ref as _ref
 
@@ -37,46 +35,38 @@ FUSED_MODDOWN = CudaKernel("fused_moddown", "fusedks.cu", "fused_moddown_launch"
                            [P, I, I, P, P, P, P, I, P, P, P, P, P, P, P, P, P, I, I, P])
 
 
-@functools.lru_cache(maxsize=256)
+@table("fused_ks_tables")
 def ks_tables(params: CkksParams, level: int, device: torch.device) -> dict:
     """Constants of ``fused_ks`` at ``level``: source limb s (of the q basis)
     gets its digit's [B̂_s⁻¹]·R and the row (B̂_s mod c_e)·R over the extended basis."""
-    with span("fhe.table.fused_ks_tables"):
-        ext = poly.ext_idx(params, level)
-        ext_primes = poly.primes_for(params, ext)
-        nq = level + 1
-        bh = np.zeros(nq, np.uint64)
-        w = np.zeros((nq, len(ext)), np.uint64)
-        for j in range(params.beta(level)):
-            lo, hi = j * params.alpha, min((j + 1) * params.alpha, nq)
-            src = poly.primes_for(params, tuple(range(lo, hi)))
-            bhat_inv, wj = rns.bconv_tables(src, ext_primes)
-            bh[lo:hi] = mont_form(bhat_inv, src)
-            w[lo:hi] = mont_form(wj.T, ext_primes).T
-        nt = ntt_ops.kernel_tables(poly.plan_for(params, ext), len(ext), device)
-        return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"], tw=nt["tw"],
-                    r2=u32_tensor(mm.mont_constants_array(ext_primes)["r2"], device),
-                    bh=u32_tensor(bh, device), w=u32_tensor(w, device))
+    ext = poly.ext_idx(params, level)
+    ext_primes = poly.primes_for(params, ext)
+    nq = level + 1
+    bh = np.zeros(nq, np.uint64)
+    w = np.zeros((nq, len(ext)), np.uint64)
+    for j in range(params.beta(level)):
+        limbs, src, _, bhat_inv, wj = rns.digit_tables(params, level, j)
+        bh[limbs[0] : limbs[-1] + 1] = mont_form(bhat_inv, src)
+        w[limbs[0] : limbs[-1] + 1] = mont_form(wj.T, ext_primes).T
+    nt = ntt_ops.kernel_tables(poly.plan_for(params, ext), len(ext), device)
+    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"], tw=nt["tw"],
+                r2=u32_tensor(mm.mont_constants_array(ext_primes)["r2"], device),
+                bh=u32_tensor(bh, device), w=u32_tensor(w, device))
 
 
-@functools.lru_cache(maxsize=256)
+@table("fused_moddown_tables")
 def moddown_tables(params: CkksParams, level: int, device: torch.device) -> dict:
     """Constants of ``fused_moddown`` at ``level``: the special block's prescale,
     its BConv rows to the q basis, [P⁻¹]_{q_e} (all ·R) and the q-basis NTT tables,
     inter-pass twiddles included."""
-    with span("fhe.table.fused_moddown_tables"):
-        p_primes = poly.primes_for(params, poly.p_idx(params))
-        q_primes = poly.primes_for(params, poly.q_idx(params, level))
-        bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
-        P_ = rns.product(p_primes)
-        pinv = np.array([pow(P_ % q, -1, q) for q in q_primes], np.uint64)
-        pc = mm.mont_constants_array(p_primes)
-        nt = ntt_ops.kernel_tables(poly.plan_for(params, poly.q_idx(params, level)), len(q_primes), device)
-        return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"], tw=nt["tw"],
-                    p_q=u32_tensor(pc["q"], device), p_qinv=u32_tensor(pc["qinv_neg"], device),
-                    bh=u32_tensor(mont_form(bhat_inv, p_primes), device),
-                    w=u32_tensor(mont_form(w.T, q_primes).T, device),
-                    pinv=u32_tensor(mont_form(pinv, q_primes), device))
+    p_primes, q_primes, bhat_inv, w, pinv = rns.moddown_tables(params, level)
+    pc = mm.mont_constants_array(p_primes)
+    nt = ntt_ops.kernel_tables(poly.plan_for(params, poly.q_idx(params, level)), len(q_primes), device)
+    return dict(q=nt["q"], qinv=nt["qinv"], psi=nt["psi"], roots=nt["w"], tw=nt["tw"],
+                p_q=u32_tensor(pc["q"], device), p_qinv=u32_tensor(pc["qinv_neg"], device),
+                bh=u32_tensor(mont_form(bhat_inv, p_primes), device),
+                w=u32_tensor(mont_form(w.T, q_primes).T, device),
+                pinv=u32_tensor(mont_form(pinv, q_primes), device))
 
 
 def key_switch_digits(d_coeff, ksk_sel, params: CkksParams, level: int):

@@ -8,8 +8,6 @@ key-switch counts the same dispatches on the CPU as on the card.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -25,27 +23,6 @@ def _scale(x, consts, qs):
     return mulmod_ref(x, c.expand(x.shape), qs)
 
 
-@functools.lru_cache(maxsize=256)
-def _digit_ref_tables(params: CkksParams, level: int, j: int):
-    """(lo, hi, src primes, bhat_inv, w) for digit j at ``level``."""
-    alpha = params.alpha
-    lo, hi = j * alpha, min((j + 1) * alpha, level + 1)
-    src = poly.primes_for(params, tuple(range(lo, hi)))
-    dst = poly.primes_for(params, poly.ext_idx(params, level))
-    bhat_inv, w = rns.bconv_tables(src, dst)
-    return lo, hi, src, bhat_inv, w
-
-
-@functools.lru_cache(maxsize=256)
-def _moddown_ref_tables(params: CkksParams, level: int):
-    p_primes = poly.primes_for(params, poly.p_idx(params))
-    q_primes = poly.primes_for(params, poly.q_idx(params, level))
-    bhat_inv, w = rns.bconv_tables(p_primes, q_primes)
-    P = rns.product(p_primes)
-    pinv = np.array([pow(P % int(q), -1, int(q)) for q in q_primes], np.int64)
-    return p_primes, q_primes, bhat_inv, w, pinv
-
-
 def key_switch_digits_ref(d_coeff, ksk_sel, params: CkksParams, level: int):
     ext = poly.ext_idx(params, level)
     ext_primes = poly.primes_for(params, ext)
@@ -54,8 +31,8 @@ def key_switch_digits_ref(d_coeff, ksk_sel, params: CkksParams, level: int):
     acc0 = torch.zeros(shape, dtype=torch.int32, device=d_coeff.device)
     acc1 = torch.zeros(shape, dtype=torch.int32, device=d_coeff.device)
     for j in range(params.beta(level)):
-        lo, hi, src, bhat_inv, w = _digit_ref_tables(params, level, j)
-        xhat = _scale(d_coeff[lo:hi], bhat_inv, src)
+        limbs, src, _, bhat_inv, w = rns.digit_tables(params, level, j)
+        xhat = _scale(d_coeff[limbs[0] : limbs[-1] + 1], bhat_inv, src)
         dj_eval = ntt_fwd_ref(bconv_ref(xhat, w, ext_primes), plan)
         acc0 = addmod_ref(acc0, mulmod_ref(dj_eval, ksk_sel[j, 0], ext_primes), ext_primes)
         acc1 = addmod_ref(acc1, mulmod_ref(dj_eval, ksk_sel[j, 1], ext_primes), ext_primes)
@@ -63,7 +40,7 @@ def key_switch_digits_ref(d_coeff, ksk_sel, params: CkksParams, level: int):
 
 
 def mod_down_digits_ref(p_coeff, q_part, params: CkksParams, level: int):
-    p_primes, q_primes, bhat_inv, w, pinv = _moddown_ref_tables(params, level)
+    p_primes, q_primes, bhat_inv, w, pinv = rns.moddown_tables(params, level)
     plan = poly.plan_for(params, poly.q_idx(params, level))
     pinv_t = torch.as_tensor(pinv.astype(np.int32), device=q_part.device)[:, None]
     outs = []

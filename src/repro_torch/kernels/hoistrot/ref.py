@@ -9,10 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.fhe import poly
+from repro_torch.fhe import poly, rns
 from repro_torch.fhe.params import CkksParams
 from repro_torch.kernels.bconv.ref import bconv_ref
-from repro_torch.kernels.fusedks.ref import _digit_ref_tables, _scale
+from repro_torch.kernels.fusedks.ref import _scale
 from repro_torch.kernels.modops.ref import addmod_ref, mulmod_ref
 from repro_torch.kernels.ntt.ref import ntt_fwd_ref
 
@@ -24,8 +24,8 @@ def mod_up_digits_ref(d_coeff, params: CkksParams, level: int):
     plan = poly.plan_for(params, ext)
     rows = []
     for j in range(params.beta(level)):
-        lo, hi, src, bhat_inv, w = _digit_ref_tables(params, level, j)
-        xhat = _scale(d_coeff[lo:hi], bhat_inv, src)
+        limbs, src, _, bhat_inv, w = rns.digit_tables(params, level, j)
+        xhat = _scale(d_coeff[limbs[0] : limbs[-1] + 1], bhat_inv, src)
         rows.append(ntt_fwd_ref(bconv_ref(xhat, w, ext_primes), plan))
     return torch.stack(rows)
 

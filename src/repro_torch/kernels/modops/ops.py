@@ -7,15 +7,13 @@ dispatch under the reference package's op name.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from repro_torch.fhe import modmath as mm
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, ptr, u32_tensor
-from repro_torch.obs.spans import span
+from repro_torch.kernels.tables import table
 
 from . import ref as _ref
 
@@ -23,11 +21,11 @@ KERNEL = CudaKernel("modops", "modops.cu", "modops_launch", [I, P, P, P, P, P, P
 _MUL, _ADD, _SUB = 0, 1, 2
 
 
-@functools.lru_cache(maxsize=1024)
-def _constants(qs: tuple[int, ...], device: torch.device):
-    with span("fhe.table.modops_constants"):
-        c = mm.mont_constants_array(qs)
-        return tuple(u32_tensor(c[k], device) for k in ("q", "qinv_neg", "r2"))
+@table("modops_constants")
+def constants(qs: tuple[int, ...], device: torch.device):
+    """(q, −q⁻¹ mod 2^32, R² mod q) of the moduli ``qs`` on ``device``, the kernel's operands."""
+    c = mm.mont_constants_array(qs)
+    return tuple(u32_tensor(c[k], device) for k in ("q", "qinv_neg", "r2"))
 
 
 def _launch(op: int, a: torch.Tensor, b: torch.Tensor, qs) -> torch.Tensor:
@@ -40,7 +38,7 @@ def _launch(op: int, a: torch.Tensor, b: torch.Tensor, qs) -> torch.Tensor:
     rows = a.numel() // n
     if n % 4 or a.data_ptr() % 16 or b.data_ptr() % 16 or rows > 65535:
         raise ValueError(f"modops kernel needs N % 4 == 0, 16-byte aligned rows and ≤ 65535 rows, got {tuple(a.shape)}")
-    q, qinv, r2 = _constants(tuple(int(v) for v in np.asarray(qs).reshape(-1)), dev)
+    q, qinv, r2 = constants(tuple(int(v) for v in np.asarray(qs).reshape(-1)), dev)
     if q.numel() != l:
         raise ValueError(f"{q.numel()} moduli for {l} limbs")
     out = torch.empty_like(a)

@@ -8,15 +8,13 @@ raises.  Each call records one dispatch (``ntt``/``intt``) and one launch.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from repro_torch.fhe.ntt import NttPlan
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cuda import I, P, CudaKernel, check_cuda, mont_form, pass_blocks, ptr, u32_tensor
-from repro_torch.obs.spans import span
+from repro_torch.kernels.tables import table
 
 from . import ref as _ref
 
@@ -36,23 +34,22 @@ def inter_pass_twiddles(pows: np.ndarray, n: int) -> np.ndarray:
     return pows[..., (np.arange(n1)[:, None] * np.arange(n2)[None, :]).reshape(-1)]
 
 
-@functools.lru_cache(maxsize=256)
+@table("ntt_kernel_tables")
 def kernel_tables(plan: NttPlan, l: int, device: torch.device) -> dict[str, torch.Tensor]:
     """The plan's first ``l`` limbs on ``device``: moduli, Montgomery constants,
     and the twist, root and inter-pass twiddle powers in Montgomery form
     (int32 bit patterns)."""
-    with span("fhe.table.ntt_kernel_tables"):
-        qs = plan.qs[:l]
+    qs = plan.qs[:l]
 
-        def mont(a):
-            return u32_tensor(mont_form(a[:l], qs), device)
+    def mont(a):
+        return u32_tensor(mont_form(a[:l], qs), device)
 
-        return dict(
-            q=u32_tensor(qs, device), qinv=u32_tensor(plan.qinv_neg[:l], device),
-            psi=mont(plan.psi_pows), w=mont(plan.w_pows),
-            winv=mont(plan.winv_pows), psiinv_ninv=mont(plan.psiinv_ninv),
-            tw=mont(inter_pass_twiddles(plan.w_pows, plan.n)), twinv=mont(inter_pass_twiddles(plan.winv_pows, plan.n)),
-        )
+    return dict(
+        q=u32_tensor(qs, device), qinv=u32_tensor(plan.qinv_neg[:l], device),
+        psi=mont(plan.psi_pows), w=mont(plan.w_pows),
+        winv=mont(plan.winv_pows), psiinv_ninv=mont(plan.psiinv_ninv),
+        tw=mont(inter_pass_twiddles(plan.w_pows, plan.n)), twinv=mont(inter_pass_twiddles(plan.winv_pows, plan.n)),
+    )
 
 
 def check_size(n: int) -> None:

@@ -7,19 +7,18 @@ as the CUDA kernel, one vectorised stage at a time.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.fhe.ntt import NttPlan, bit_reverse_indices
+from repro_torch.kernels.tables import table
 
 
-@functools.lru_cache(maxsize=32)
+@table("ntt_bitrev")
 def _bitrev(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(bit_reverse_indices(n), device=device)
 
 
-@functools.lru_cache(maxsize=256)
+@table("ntt_ref_tables")
 def _tables(plan: NttPlan, l: int, device: torch.device) -> dict[str, torch.Tensor]:
     """The plan's first ``l`` limbs as int64 tensors on ``device``."""
     def t(a):

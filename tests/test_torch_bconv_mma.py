@@ -146,7 +146,7 @@ def kernel_model(xhat: torch.Tensor, w: np.ndarray, cs) -> torch.Tensor:
     m = len(cs)
     assert 1 <= k <= T_bops.MAX_K and n % T_bops.COEFFS == 0
     kss = -(-k // KSTEP)
-    tab = T_bops._table(np.asarray(w, np.uint64).tobytes(), k, tuple(int(v) for v in cs), torch.device("cpu"))
+    tab = T_bops.device_table(np.asarray(w, np.uint64).tobytes(), k, tuple(int(v) for v in cs), torch.device("cpu"))
     tab = tab.long() & M32  # the staged table rows of one chunk of all m targets
     kpad = kss * KSTEP
     s_b, cm, c, cinv = tab[:, :kpad], tab[:, kpad: kpad + 8], tab[:, kpad + 8], tab[:, kpad + 9]
@@ -266,7 +266,7 @@ def test_tables_and_diag_constants_equal_the_reference_wrappers(monkeypatch, m):
 
     monkeypatch.setattr(R_bkernel, "bconv_pallas", capture)
     R_bops.bconv(jnp.asarray(xhat), jnp.asarray(w), np.array(cs, np.uint32), backend="kernel")
-    tab = T_bops._table(w.astype(np.uint64).tobytes(), 3, tuple(cs), torch.device("cpu")).numpy().view(np.uint32)
+    tab = T_bops.device_table(w.astype(np.uint64).tobytes(), 3, tuple(cs), torch.device("cpu")).numpy().view(np.uint32)
     assert tab.shape == (m, KSTEP + T_bops.ROW_TAIL)
     wb, cm, rest = tab[:, :KSTEP], tab[:, KSTEP: KSTEP + 8], tab[:, KSTEP + 10:]
     c, cinv = tab[:, KSTEP + 8], tab[:, KSTEP + 9]

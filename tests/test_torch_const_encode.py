@@ -115,13 +115,13 @@ def test_real_constant_of_2_62_or_more_takes_the_host_path(ctx):
 def test_the_moduli_column_is_a_table_built_once():
     params = P.make_params(1 << 9, 6, 2, check_security=False)
     c = FheContext(params=params, device=CPU)
-    ops._moduli_column.cache_clear()
+    poly.limb_column.cache_clear()
     for _ in range(3):
         for lv in (6, 2):
             ops._encode_const(c, -1.25, lv, params.scale)
-    info = ops._moduli_column.cache_info()
+    info = poly.limb_column.cache_info()
     assert (info.misses, info.hits) == (2, 4)
-    col = ops._moduli_column(tuple(params.q_primes[:3]), torch.device(CPU))
+    col = poly.limb_column(tuple(params.q_primes[:3]), torch.int64, torch.device(CPU))
     assert col.shape == (3, 1) and col.dtype == torch.int64 and col[:, 0].tolist() == list(params.q_primes[:3])
 
 

@@ -182,13 +182,18 @@ def _rand_eval(p, level, seed):
     return (rng.integers(0, 1 << 31, size=(level + 1, p.n)) % qs[:, None]).astype(np.uint32)
 
 
+def _fused(backend):
+    """The key-switch pipeline a context resolves ``backend`` to on the CPU."""
+    return T_KS.resolve_pipeline(backend, CPU)[0] == "fused"
+
+
 def test_key_switch_every_backend_matches_reference_ref(ks_pair):
     rp, rlk, tp, trlk = ks_pair
     for level in sorted({rp.L, min(rp.L, rp.alpha - 1), min(rp.L, rp.alpha), 0}):
         d = _rand_eval(rp, level, 11 + level)
         r0, r1 = R_KS.key_switch(jnp.asarray(d), rp, level, rlk, backend="ref")
         for backend in ("fused", "staged", "ref"):
-            t0, t1 = T_KS.key_switch(torch.from_numpy(d.astype(np.int32)), tp, level, trlk, backend)
+            t0, t1 = T_KS.key_switch(torch.from_numpy(d.astype(np.int32)), tp, level, trlk, _fused(backend))
             np.testing.assert_array_equal(t0.numpy().astype(np.int64), _np(r0))
             np.testing.assert_array_equal(t1.numpy().astype(np.int64), _np(r1))
 
@@ -199,7 +204,7 @@ def test_key_switch_dispatches_and_trace_match(ks_pair):
     beta = tp.beta(tp.L)
     for backend, total in (("fused", 4), ("staged", 7 * beta + 13)):
         with T_dispatch.count_dispatches() as tc, T_trace.capture_trace() as tt:
-            T_KS.key_switch(torch.from_numpy(d.astype(np.int32)), tp, tp.L, trlk, backend)
+            T_KS.key_switch(torch.from_numpy(d.astype(np.int32)), tp, tp.L, trlk, _fused(backend))
         assert T_dispatch.total(tc) == total
         with R_dispatch.count_dispatches() as rc, R_trace.capture_trace() as rt:
             R_KS.key_switch(jnp.asarray(d), rp, rp.L, rlk, backend=backend)
@@ -215,7 +220,7 @@ def test_mod_down_pair_fused_matches_staged(ks_pair):
     rng = np.random.default_rng(5)
     acc = rng.integers(0, 1 << 31, size=(2, len(ext), tp.n)) % np.array(ext)[None, :, None]
     a0, a1 = (torch.from_numpy(acc[i].astype(np.int32)) for i in range(2))
-    f0, f1 = T_KS.mod_down_pair(a0, a1, tp, tp.L, backend="fused")
+    f0, f1 = T_KS.mod_down_pair(a0, a1, tp, tp.L, fused=True)
     assert torch.equal(f0, T_KS.mod_down(a0, tp, tp.L))
     assert torch.equal(f1, T_KS.mod_down(a1, tp, tp.L))
 

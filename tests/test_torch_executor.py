@@ -22,6 +22,7 @@ from repro_torch.fhe import params as T_P
 from repro_torch.fhe.context import ExecPolicy as T_Policy
 from repro_torch.fhe.context import FheContext as T_Ctx
 from repro_torch.kernels import dispatch as T_dispatch
+from repro_torch.kernels import tables
 
 torch.set_num_threads(1)
 
@@ -113,24 +114,20 @@ def test_the_card_is_the_default_and_never_falls_back(jobs, monkeypatch):
     assert len(T_E.affiliation_streams(device=CPU)) == T_E.N_AFFILIATIONS == 8
 
 
-def test_table_upload_builds_every_table_a_staged_mul_reads(jobs):
-    """``_upload_tables`` builds the tables of every cache a staged mul at the
-    jobs' level reads.  On the CPU a mul reads two of them (the per-limb
-    columns and the rescale's moduli): after the upload it builds none."""
-    from repro_torch.fhe import keyswitch, ops
-    from repro_torch.kernels.bconv import ops as bconv_ops
-    from repro_torch.kernels.modops import ops as modops
-    from repro_torch.kernels.ntt import ops as ntt_ops
-
+def test_from_cold_tables_equals_the_lone_muls_and_a_second_call_builds_none(jobs):
+    """With every table dropped, the fan-out builds what it reads (on the card,
+    from side streams: ``kernels.tables`` makes that safe) and equals each job's
+    lone ``ctx.mul`` bit for bit; a second call builds no table."""
     tp, tks, tpairs, _ = jobs
-    level = tpairs[0][0].level
-    cpu_read = (keyswitch._limb_column, ops._rescale_tables)
-    caches = (ntt_ops.kernel_tables, modops._constants, bconv_ops._table, *cpu_read)
-    for c in caches:
-        c.cache_clear()
-    T_E._upload_tables(tp, level, torch.device(CPU))
-    assert all(c.cache_info().currsize > 0 for c in caches)
-    misses = [c.cache_info().misses for c in caches]
-    T_E._upload_tables(tp, level, torch.device(CPU))  # a second call builds nothing
-    T_Ctx(params=tp, keys=tks, policy=T_Policy(backend="ref"), device=CPU).mul(*tpairs[0])
-    assert [c.cache_info().misses for c in caches] == misses
+    ctx = T_Ctx(params=tp, keys=tks, policy=T_Policy(backend="ref"), device=CPU)
+    alone = [ctx.mul(a, b) for a, b in tpairs]
+    tables.clear()
+    outs = T_E.parallel_shallow_mul(tp, tks, tpairs, T_E.affiliation_streams(2, CPU), device=CPU)
+    built = tables.builds()
+    assert built > 0
+    for out, want in zip(outs, alone):
+        assert torch.equal(out.c0, want.c0) and torch.equal(out.c1, want.c1)
+        assert (out.level, out.scale) == (want.level, want.scale)
+    again = T_E.parallel_shallow_mul(tp, tks, tpairs, T_E.affiliation_streams(4, CPU), device=CPU)
+    assert tables.builds() == built
+    assert all(torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1) for a, b in zip(again, outs))

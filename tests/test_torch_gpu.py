@@ -291,10 +291,11 @@ def test_bgv_on_the_card_equals_the_cpu(card):
 
 
 def test_executor_on_four_streams_equals_four_ctx_muls(card):
-    """Four jobs at matmul over four CUDA streams, from cold table caches: each
-    output equals its lone ctx.mul, and the fan-out builds no table."""
+    """Four jobs at matmul over four CUDA streams, from cold tables (the side
+    streams build them): each output equals its lone ctx.mul, and a second
+    fan-out builds no table."""
     from repro_torch.core import executor as E
-    from repro_torch.fhe import keyswitch, ops
+    from repro_torch.kernels import tables
 
     cs = _chip_smoke()
     p = P.workload_params(cs.EXECUTOR["preset"])
@@ -302,15 +303,15 @@ def test_executor_on_four_streams_equals_four_ctx_muls(card):
     ctx = FheContext(params=p, keys=ks, policy=ExecPolicy(backend="ref"), device=card)
     pairs = cs.executor_pairs(ctx)[:4]
     alone = [ctx.mul(a, b) for a, b in pairs]
-    caches = (nops.kernel_tables, mops._constants, bops._table, keyswitch._limb_column, ops._rescale_tables)
-    for c in caches:
-        c.cache_clear()
-    E._upload_tables(p, p.L, pairs[0][0].c0.device)
-    misses = [c.cache_info().misses for c in caches]
+    tables.clear()
     streams = E.affiliation_streams(4, card)
     assert len({s.cuda_stream for s in streams} | {torch.cuda.current_stream().cuda_stream}) == 5
     outs = E.parallel_shallow_mul(p, ks, pairs, streams, card)
-    assert [c.cache_info().misses for c in caches] == misses
+    built = tables.builds()
+    assert built > 0
+    again = E.parallel_shallow_mul(p, ks, pairs, streams, card)
+    assert tables.builds() == built
+    assert all(torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1) for a, b in zip(again, outs))
     for got, want in zip(outs, alone):
         assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1) and got.scale == want.scale
     assert cs.digest(outs[0]) == cs.REFERENCE["matmul"]["digest"]

@@ -218,7 +218,7 @@ def test_hoisted_digits_reused_across_calls(hset, backend):
     forward NTTs (staged) or one ModDown launch (fused) remain per rotation."""
     h = hset
     rhd = R_KS.hoisted_mod_up(h.rct.c1, h.rp, h.rp.L, backend="ref")
-    hd = T_KS.hoisted_mod_up(h.tct.c1, h.tp, h.tp.L, backend)
+    hd = T_KS.hoisted_mod_up(h.tct.c1, h.tp, h.tp.L, fused=backend == "fused")
     assert hd.beta == h.tp.beta(h.tp.L) and hd.level == h.tp.L
     np.testing.assert_array_equal(hd.digits.numpy().astype(np.int64), _np(rhd.digits))
     tctx = h.tctx_at(backend)

@@ -20,10 +20,10 @@ from repro.kernels.fusedks import ops as R_fops
 from repro.kernels.hoistrot import ref as R_hoistref
 from repro.kernels.modops import ref as R_mod
 from repro.kernels.ntt import ref as R_nttref
-from repro_torch.fhe import keyswitch as T_KS
 from repro_torch.fhe import ntt as T_ntt
 from repro_torch.fhe import params as T_P
 from repro_torch.fhe import poly as T_poly
+from repro_torch.fhe import rns as T_rns
 from repro_torch.kernels import cuda, dispatch
 from repro_torch.kernels.bconv import ops as T_bconv
 from repro_torch.kernels.fusedks import ops as T_fops
@@ -220,7 +220,7 @@ def test_fused_tables_are_the_montgomery_forms_of_the_bconv_tables(ks_pair):
     w = t["w"].numpy().view(np.uint32).astype(np.uint64)
     assert w.shape == (level + 1, len(ext))
     for j in range(tp.beta(level)):
-        digit_idx, bhat_inv, wj, _ = T_KS._digit_tables(tp, level, j)
+        digit_idx, _, _, bhat_inv, wj = T_rns.digit_tables(tp, level, j)
         for r, s in enumerate(digit_idx):
             for e, c in enumerate(ext):
                 assert int(w[s, e]) == (int(wj[r, e]) << 32) % c

@@ -19,16 +19,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.fhe import keys as K
-from repro_torch.fhe import keyswitch, ops, poly, polyeval
+from repro_torch.fhe import ops, polyeval
 from repro_torch.fhe import linear as lin
-from repro_torch.fhe import ntt as nttmod
 from repro_torch.fhe import params as P
 from repro_torch.fhe import trace as fhe_trace
 from repro_torch.fhe.context import ExecPolicy, FheContext
-from repro_torch.kernels import dispatch
-from repro_torch.kernels.fusedks import ops as fused_ops
-from repro_torch.kernels.modops import ops as modops
-from repro_torch.kernels.ntt import ops as ntt_ops
+from repro_torch.kernels import dispatch, tables
 from repro_torch.obs import span
 
 torch.set_num_threads(1)
@@ -38,9 +34,6 @@ PARAMS = P.make_params(1 << 9, 6, 2, check_security=False)
 # 11 diagonals at n1 = 4: babies {1, 2, 3}, giants {4, 8, 16}
 DIAGS = (0, 1, 2, 3, 4, 5, 9, 10, 16, 17, 19)
 N1 = 4
-TABLE_BUILDERS = (keyswitch._digit_tables, keyswitch._moddown_tables, keyswitch._limb_column, ops._rescale_tables,
-                  ops._moduli_column, fused_ops.ks_tables, fused_ops.moddown_tables, modops._constants,
-                  ntt_ops.kernel_tables, poly.plan_for, poly._eval_perm, nttmod.subplan)
 
 
 @pytest.fixture(scope="module")
@@ -157,13 +150,12 @@ def test_profiler_changes_no_output_trace_or_dispatch(setup, tmp_path, name):
 def test_table_spans_show_a_cold_cache_only(setup, tmp_path, name):
     ctx, plan, ct = setup
     fn = _ops(ctx, plan, ct)[name]
-    for builder in TABLE_BUILDERS:
-        builder.cache_clear()
+    tables.clear()
     ctx.keys.hoist_cache.clear()
     _, cold = _spans(fn, tmp_path / "cold.json")
     _, warm = _spans(fn, tmp_path / "warm.json")
     built = {s[2] for s in cold if s[2].startswith("fhe.table.")}
-    assert "fhe.table.plan_for" in built and "fhe.table.ntt_subplan" in built
-    # the moduli column serves a real constant's encode and every rescale
-    assert ("fhe.table.moduli_column" in built) == (name != "rotate")
+    assert {"fhe.table.plan_for", "fhe.table.build_plan", "fhe.table.limb_column"} <= built
+    # the rescale's constants serve every rescale, and a rotation has none
+    assert ("fhe.table.rescale_tables" in built) == (name != "rotate")
     assert [s for s in warm if s[2].startswith("fhe.table.")] == []

@@ -1,11 +1,16 @@
 """Host tables of the port against the reference package: prime chains,
-parameter presets, Montgomery constants, BConv tables, NTT plans, encoder."""
+parameter presets, Montgomery constants, BConv tables, NTT plans, encoder.
+And the one memo that keeps every table (``kernels.tables``): each registered
+builder runs once per key, under its own span."""
 
+import collections
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.fhe import encoder as R_enc
 from repro.fhe import modmath as R_mm
@@ -13,12 +18,20 @@ from repro.fhe import ntt as R_ntt
 from repro.fhe import params as R_P
 from repro.fhe import rns as R_rns
 from repro_torch.fhe import encoder as T_enc
+from repro_torch.fhe import keys as T_K
 from repro_torch.fhe import modmath as T_mm
 from repro_torch.fhe import ntt as T_ntt
 from repro_torch.fhe import params as T_P
 from repro_torch.fhe import rns as T_rns
+from repro_torch.fhe.context import FheContext
+from repro_torch.kernels import tables
+from repro_torch.kernels.bconv import ops as T_bops
+from repro_torch.kernels.fusedks import ops as T_fops
+from repro_torch.kernels.modops import ops as T_mo
 
 torch.set_num_threads(1)
+
+CPU = "cpu"
 
 PLAN_FIELDS = ("qs", "qinv_neg", "r2", "w_pows", "winv_pows", "psi_pows", "psiinv_ninv")
 
@@ -114,3 +127,73 @@ def test_encoder_matches(logn):
     np.testing.assert_array_equal(T_enc.encode_const(0.7, n, scale, primes), R_enc.encode_const(0.7, n, scale, primes))
     np.testing.assert_array_equal(T_enc.decode(t, primes, scale), R_enc.decode(r, primes, scale))
     assert np.max(np.abs(T_enc.decode(t, primes, scale) - z)) < T_enc.max_encode_error(n, scale)
+
+
+def _every_table(ctx):
+    """Build every table of the port on the CPU: a fused and a staged mul
+    (rescale included), a rotation and a real constant; then the card's
+    tables, built here for the CPU."""
+    p, cpu = ctx.params, torch.device(CPU)
+    a = ctx.encrypt(ctx.encode(np.random.default_rng(0).uniform(-0.5, 0.5, size=p.slots)))
+    for backend in ("fused", "staged"):
+        c = ctx.with_policy(backend=backend)
+        c.add_const(c.rotate(c.mul(a, a), 1), 0.5)
+    T_fops.ks_tables(p, p.L, cpu)
+    T_fops.moddown_tables(p, p.L, cpu)
+    T_mo.constants(p.q_primes, cpu)
+    _, _, dst, _, w = T_rns.digit_tables(p, p.L, 0)
+    T_bops.device_table(np.asarray(w, np.uint64).tobytes(), len(w), dst, cpu)
+
+
+@pytest.fixture(scope="module")
+def cold_build(tmp_path_factory):
+    """From no table at all: the ``fhe.table.*`` spans of one ``_every_table``
+    run, and every builder's cache_info after it and after a second run."""
+    p = T_P.make_params(1 << 9, 4, 2, check_security=False)
+    ctx = FheContext(params=p, keys=T_K.full_keyset(p, seed=0, rotations=(1,), conjugate=False, device=CPU),
+                     device=CPU)
+    tables.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _every_table(ctx)
+    path = tmp_path_factory.mktemp("tables") / "cold.json"
+    prof.export_chrome_trace(str(path))
+    spans = collections.Counter(e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                                if e.get("ph") == "X" and e.get("cat") == "user_annotation")
+    first = {name: f.cache_info() for name, f in tables.registry().items()}
+    _every_table(ctx)
+    second = {name: f.cache_info() for name, f in tables.registry().items()}
+    return spans, first, second
+
+
+@pytest.mark.parametrize("name", sorted(tables.registry()))
+def test_each_table_is_built_once_a_key_under_its_span(cold_build, name):
+    spans, first, second = cold_build
+    info = first[name]
+    assert info.misses == info.currsize > 0  # built, and once for each key
+    assert spans[f"fhe.table.{name}"] == info.misses
+    assert second[name].misses == info.misses  # the second run builds nothing
+    assert info.maxsize is None  # no bound: no table is ever freed
+
+
+def test_table_names_are_unique_and_a_second_registration_raises():
+    names = list(tables.registry())
+    assert len(names) == len(set(names)) >= 15
+    with pytest.raises(ValueError, match="already registered"):
+        tables.table(names[0])
+    assert tables.builds() == sum(f.cache_info().misses for f in tables.registry().values())
+
+
+@dataclasses.dataclass
+class _Held:
+    rows: list
+
+
+@pytest.mark.parametrize("out", [torch.zeros(2), (1, np.zeros(2)), [torch.zeros(1)], {"a": (torch.zeros(1),)},
+                                 _Held([np.uint32(3), torch.zeros(1)]), None])
+def test_table_results_are_walked_for_cuda_tensors(out):
+    assert tables._cuda_device(out) is None  # CPU tensors only: nothing to synchronise
+
+
+def test_a_table_result_the_walker_cannot_look_inside_raises():
+    with pytest.raises(TypeError, match="cannot look inside"):
+        tables._cuda_device([{"a": object()}])
