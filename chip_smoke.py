@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and NTTs, the bootstrap ring's BConv and NTT, and the BGV presets' shapes
      that no other case has (``exact_count``'s products, its t-scaling product
      by a per-limb column over the extended basis, its NTT, key-switch kernels
-     and BConvs; ``psi``'s ``fused_ks``)
+     and BConvs; ``psi``'s ``fused_ks``), and ``bsgs_mac`` at one of the
+     ``lstm`` step's BSGS plans and LoLa-MNIST's three (``BSGS_MAC_CASES``)
      — bit-exact, launched, timed with CUDA events; the two-pass kernels (NTT,
      ``fused_ks``, ``fused_moddown``, ``hoist_modup``) print the thread blocks
      their launcher starts per pass, and BConv its grid;
@@ -39,7 +40,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            SlotToCoeff) at the ring of ``tests/test_bootstrap.py``
            (n = 2^8, L = 18, dnum = 1), under the default policy (fused,
            hoisted) and under ``ExecPolicy(backend="staged")``: every one of
-           the seven kernels launches;
+           the eight kernels launches;
        3e. ModRaise (1 → 58 limbs) and EvalMod (a degree-32 Chebyshev tree,
            31 relinearisations with one key-switch digit) at the
            ``packed_bootstrap`` preset's full width (N = 2^16, L = 57);
@@ -175,13 +176,16 @@ LSTM_GROUP = dict(
 #   out = fc.bootstrap(bctx, ct, post_scale=64)
 # digest(out), out.level, the reference's max |decode(out) − z| and the
 # dispatches of that bootstrap (the staged pipeline, baby steps hoisted), less
-# the ntt of each of its 303 real constants, which the port builds with none.
+# the ntt of each of its 303 real constants, which the port builds with none,
+# and with the products and sums of each of its 4 BSGS matvecs (128 diagonals
+# in 8 giant groups) as one bsgsmac: 4 × 256 mulmod and 4 × 240 addmod fewer.
 # max_err is tests/test_bootstrap.py's bound.
 BOOTSTRAP = dict(
     n=1 << 8, L=18, dnum=1, h=32, level=6, max_err=5e-2,
     digest="b1e6b0bbdf170beb7348a98ccbd92ee79dc4d513ea172400ab8c7face8a10d42",
     decode_error=0.0036717060197168348,
-    staged_dispatches={"intt": 1454, "ntt": 1966, "mulmod": 4534, "bconv": 682, "addmod": 2774, "submod": 1418},
+    staged_dispatches={"intt": 1454, "ntt": 1966, "mulmod": 3510, "bconv": 682, "addmod": 1814, "submod": 1418,
+                       "bsgsmac": 4},
 )
 # ModRaise and EvalMod at packed_bootstrap (N = 2^16, L = 57, dnum = 1), from the
 # reference package on the CPU with ks = K.full_keyset(p, seed=0) (no Galois keys),
@@ -266,10 +270,18 @@ SCHEDULING = dict(
                    mixed_schemes="966c990ea3c35608cae00ab444edee5743d696473e60ddbc402207bd8bdd078e"),
     plan_and_price="e5308def188f9efa297a7a7303dfd8125bd3096986625dd188752251200a47e6",
 )
+# bsgs_mac's cases: (preset, level, n1, diagonals) of one of the lstm step's
+# eight plans (128 diagonals at n1 = 8, 14 limbs), then LoLa-MNIST's three at
+# N = 2^13: the convolution's 25 taps (5 × 5 at stride 2 over stride planes of
+# 14 × 14 pixels, in its packing's order) at the top level, the dense layers below.
+LOLA_CONV_DIAGONALS = tuple(((dy % 2) * 2 + dx % 2) * 196 + 14 * (dy // 2) + dx // 2
+                            for dy in range(5) for dx in range(5))
+BSGS_MAC_CASES = (("lstm", 13, 8, tuple(range(128))), ("lola_mnist_plain", 6, 14, LOLA_CONV_DIAGONALS),
+                  ("lola_mnist_plain", 4, 16, tuple(range(128))), ("lola_mnist_plain", 2, 4, tuple(range(16))))
 # Which kernel each dispatch op launches.
 KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": "ntt", "intt": "ntt",
              "fusedks": "fused_ks", "fused_moddown": "fused_moddown", "bconv": "bconv",
-             "hoistmodup": "hoist_modup", "hoistmac": "hoist_mac"}
+             "hoistmodup": "hoist_modup", "hoistmac": "hoist_mac", "bsgsmac": "bsgs_mac"}
 
 # H100 SXM peaks.  Memory: 3.35 TB/s (NVIDIA data sheet).  Integer
 # instructions: an SM issues at most 4 warp instructions a clock, 128 thread
@@ -683,7 +695,7 @@ def phase_3h(kernels, paths, launches_of, lstm, mlp, psi, exact, mul, smi) -> in
     h_launched = {k: sum(paths[f"3h {label}"][k] for label, _, _ in cases) for k in kernels}
     print(f"  kernel launches over the {len(cases)} ops: {h_launched}")
     if min(h_launched[k] for k in ("modops", "ntt", "fused_ks", "fused_moddown", "bconv", "hoist_modup",
-                                    "hoist_mac")) < 1:
+                                    "hoist_mac", "bsgs_mac")) < 1:
         problems.append(f"a kernel of phase 3h was not launched: {h_launched}")
     if problems:
         print("FAILED planner parity: " + "; ".join(problems), file=sys.stderr)
@@ -1586,6 +1598,8 @@ def phases() -> int:
     from repro_torch.kernels import cuda, dispatch, tables
     from repro_torch.kernels.bconv import ops as bops
     from repro_torch.kernels.bconv import ref as bref
+    from repro_torch.kernels.bsgsmac import ops as bmops
+    from repro_torch.kernels.bsgsmac import ref as bmref
     from repro_torch.kernels.fusedks import ops as fops
     from repro_torch.kernels.fusedks import ref as fref
     from repro_torch.kernels.hoistrot import ops as hops
@@ -1623,6 +1637,8 @@ def phases() -> int:
                             replaces="src/repro/kernels/hoistrot/kernel.py:56 (hoist_modup_pallas)"),
         "hoist_mac": dict(k=hops.HOIST_MAC, source="src/repro_torch/csrc/hoistrot.cu",
                           replaces="src/repro/kernels/hoistrot/kernel.py:111 (hoist_mac_pallas)"),
+        "bsgs_mac": dict(k=bmops.KERNEL, source="src/repro_torch/csrc/bsgsmac.cu",
+                         replaces="none: a BSGS matvec's mulmod_pallas and addmod_pallas chain, one launch"),
     }
     for v in kernels.values():
         v["cases"] = []
@@ -1790,6 +1806,22 @@ def phases() -> int:
               lambda: href.galois_mac_ref(dig, ksk, p, lv), (beta * m + nrot * 2 * beta * m + nrot * 2 * m) * n * WORD,
               nrot * 2 * m * n * beta * (MULMOD + ADDMOD))
         del dig, ksk
+
+    # a BSGS matvec's products and sums in one launch, at the plans of BSGS_MAC_CASES
+    for name, level, n1, diagonals in BSGS_MAC_CASES:
+        p = P.workload_params(name)
+        rows, babies, idx, off = linear.BsgsPlan(n1=n1, diags=dict.fromkeys(diagonals)).mac_layout()
+        nd, nb, ng, l = len(rows), len(babies), len(off) - 1, level + 1
+        qs = p.q_primes[:l]
+        dg = rand_residues((nd * l, p.n), qs * nd, gen).reshape(nd, l, p.n)
+        bab = rand_residues((nb * 2 * l, p.n), qs * (2 * nb), gen).reshape(nb, 2, l, p.n)
+        idx, off = (torch.tensor(v, dtype=torch.int32, device=DEVICE) for v in (idx, off))
+        # each diagonal, baby and partial sum once; a montmul and a 64-bit add a product,
+        # a REDC and a montmul an output
+        check("bsgs_mac", f"{name} D={nd} n1={n1} G={ng} ({l}, {p.n})",
+              lambda: bmops.bsgs_mac(dg, bab, idx, off, qs), lambda: bmref.bsgs_mac_ref(dg, bab, idx, off, qs),
+              (nd + 2 * nb + 2 * ng) * l * p.n * WORD, 2 * l * p.n * (nd * (MONTMUL + 2) + ng * 2 * MONTMUL))
+        del dg, bab
 
     # one key-switch digit (β = 1) at packed_bootstrap's top level: 58 → 116
     # limbs, the shapes of EvalMod's first relinearisations (phase 3e); the
@@ -1973,7 +2005,7 @@ def phases() -> int:
         problems.append(f"digests {digest(ct1)}, {digest(ct3)} != reference {MLP['ct1']}, {MLP['ct3']}")
     if not err <= MLP["max_err"]:
         problems.append(f"decode error {err} > {MLP['max_err']}")
-    mlp_kernels = ("modops", "ntt", "fused_ks", "fused_moddown", "hoist_modup", "hoist_mac")
+    mlp_kernels = ("modops", "ntt", "fused_ks", "fused_moddown", "hoist_modup", "hoist_mac", "bsgs_mac")
     if launched != launches_of(counts) or min(launched[k] for k in mlp_kernels) < 1:
         problems.append(f"kernel launches {launched} != dispatches {launches_of(counts)}")
     if problems:
@@ -2278,7 +2310,7 @@ def phases() -> int:
 
     # -- 4. report ---------------------------------------------------------------
     # launches: from the path that carries the kernel at the lstm shape of its first case
-    home = {"bconv": "staged mul lstm", "hoist_modup": "lstm group", "hoist_mac": "lstm group"}
+    home = {"bconv": "staged mul lstm", "hoist_modup": "lstm group", "hoist_mac": "lstm group", "bsgs_mac": "mlp"}
     rows = []
     for kname, v in kernels.items():
         head = v["cases"][0]  # the lstm shape its path gives the kernel

@@ -12,34 +12,57 @@ Execution policy comes from ``repro_torch.fhe.context.FheContext`` —
 ``plan_matrix`` picks the baby-step count n1 from a hoisting-aware cost model
 (under hoisting, baby steps are nearly free — see ``choose_n1``).  Planning is
 numpy on the host; each diagonal is encoded on the context's device the first
-time the transform is applied at a level and scale, and the plan keeps the
-plaintext for every later application.
+time the transform is applied at a level and scale, into one stack the plan
+keeps for every later application, and every giant group's products and sums
+run as one ``bsgs_mac`` launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import numpy as np
+import torch
 
+from repro_torch.kernels.bsgsmac import ops as bsgsmac
 from repro_torch.obs.spans import span
 
-from . import ops
+from . import ops, trace
 from .params import CkksParams
+
+
+@dataclasses.dataclass(eq=False)
+class DiagonalStack:
+    """A plan's diagonals encoded at one (level, scale) on one device, in the
+    operands ``bsgs_mac`` takes.
+
+    ``data`` is (D, level+1, N), one row per diagonal, pre-rotated by its giant
+    step, in ``BsgsPlan.mac_layout``'s order; ``plaintexts`` maps each diagonal
+    to a ``Plaintext`` over its row; ``babies``, ``baby_idx`` and ``offsets``
+    are the layout's, the last two int32 tensors on the device.
+    """
+
+    data: torch.Tensor
+    plaintexts: dict
+    babies: tuple[int, ...]
+    baby_idx: torch.Tensor
+    offsets: torch.Tensor
 
 
 @dataclasses.dataclass
 class BsgsPlan:
     """The diagonals of M and the baby-step count n1 of its BSGS split.
 
-    The plan keeps every diagonal's encoded plaintext on the device it was
-    applied on, one per (diagonal, level, scale, device, params): the matvec
-    encodes a diagonal once, and every later application at the same level and
-    scale reads it back.  That holds #diagonals × (ℓ+1) × N × 4 B on the device
-    for each level and scale the plan is applied at (3.76 GB for an LSTM step's
-    eight plans at N = 2^16 and ℓ = 13; 28.3 MB for LoLa-MNIST's three at
-    N = 2^13), and is freed with the plan.  Equality ignores it.
+    The plan keeps its diagonals' encoded plaintexts on the device it was
+    applied on, one ``DiagonalStack`` per (level, scale, device, params): the
+    matvec encodes each diagonal once, and every later application at the same
+    level and scale reads the stack back.  That holds #diagonals × (ℓ+1) × N ×
+    4 B on the device for each level and scale the plan is applied at (3.76 GB
+    for an LSTM step's eight plans at N = 2^16 and ℓ = 13; 28.3 MB for
+    LoLa-MNIST's three at N = 2^13), and is freed with the plan.  Equality
+    ignores it.
     """
 
     n1: int  # baby-step count
@@ -47,7 +70,7 @@ class BsgsPlan:
     _rot_cache: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
-    _plaintexts: dict = dataclasses.field(
+    _stacks: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
 
@@ -76,18 +99,78 @@ class BsgsPlan:
             self._rot_cache["all"] = hit
         return hit
 
+    def giant_groups(self) -> tuple[tuple[int, tuple[int, ...]], ...]:
+        """(g, diagonals with d // n1 = g) for each giant index g, in order of g,
+        the diagonals of a group in the plan's order: the reference's order of
+        the products and sums."""
+        hit = self._rot_cache.get("groups")
+        if hit is None:
+            by_giant: dict[int, list[int]] = {}
+            for d in self.diags:
+                by_giant.setdefault(d // self.n1, []).append(d)
+            hit = tuple((g, tuple(ds)) for g, ds in sorted(by_giant.items()))
+            self._rot_cache["groups"] = hit
+        return hit
+
+    def mac_layout(self) -> tuple[tuple[int, ...], tuple[int, ...], tuple[int, ...], tuple[int, ...]]:
+        """(rows, babies, baby_idx, offsets) of ``bsgs_mac``'s operands: the
+        diagonals in stack order (``giant_groups``'s, groups together), the
+        baby steps they use, the position in ``babies`` of each row's, and
+        where each group's rows start (G+1 entries, the last D)."""
+        hit = self._rot_cache.get("mac")
+        if hit is None:
+            groups = self.giant_groups()
+            rows = tuple(d for _, ds in groups for d in ds)
+            babies = tuple(sorted({d % self.n1 for d in rows}))
+            idx = tuple(babies.index(d % self.n1) for d in rows)
+            offsets = tuple(int(o) for o in np.cumsum([0] + [len(ds) for _, ds in groups]))
+            hit = self._rot_cache["mac"] = (rows, babies, idx, offsets)
+        return hit
+
+    def stack(self, ctx, level: int, scale: float) -> tuple[DiagonalStack, dict]:
+        """The plan's ``DiagonalStack`` at (level, scale) on the context's
+        device, and {d: the ``fhe.trace`` instructions of d's encode}.
+
+        On the first call every diagonal is encoded into its row (with the
+        trace active, each encode's instructions are captured instead of
+        recorded, for the caller to record where the reference encodes that
+        diagonal); later calls read the stack back (an ``fhe.bsgs.diag_hit``
+        span) and encode nothing."""
+        key = (level, scale, ctx.device, ctx.params)
+        st = self._stacks.get(key)
+        if st is not None:
+            with span("fhe.bsgs.diag_hit"):
+                return st, {}
+        rows, babies, idx, offsets = self.mac_layout()
+        data = torch.empty((len(rows), level + 1, ctx.params.n), dtype=torch.int32, device=ctx.device)
+        encoded, tracing = {}, trace.tracing()
+        for row, d in enumerate(rows):
+            u = np.roll(self.diags[d], (d // self.n1) * self.n1)
+            with trace.capture_trace() if tracing else contextlib.nullcontext([]) as encoded[d]:
+                data[row].copy_(ops._encode(ctx, u, level=level, scale=scale).data)
+        st = self._stacks[key] = DiagonalStack(
+            data=data,
+            plaintexts={d: ops.Plaintext(data=data[row], level=level, scale=scale) for row, d in enumerate(rows)},
+            babies=babies,
+            baby_idx=torch.tensor(idx, dtype=torch.int32, device=ctx.device),
+            offsets=torch.tensor(offsets, dtype=torch.int32, device=ctx.device),
+        )
+        return st, encoded
+
     def plaintext(self, ctx, d: int, level: int, scale: float) -> ops.Plaintext:
         """diag_d pre-rotated by its giant step (d // n1)·n1 and encoded at
-        (level, scale) on the context's device: on the first call, then from
-        the plan (an ``fhe.bsgs.diag_hit`` span)."""
-        key = (d, level, scale, ctx.device, ctx.params)
-        pt = self._plaintexts.get(key)
-        if pt is not None:
-            with span("fhe.bsgs.diag_hit"):
-                return pt
-        u = np.roll(self.diags[d], (d // self.n1) * self.n1)
-        pt = self._plaintexts[key] = ops._encode(ctx, u, level=level, scale=scale)
-        return pt
+        (level, scale) on the context's device: the row of d in the plan's
+        stack, encoded on the first call."""
+        st, encoded = self.stack(ctx, level, scale)
+        for instrs in encoded.values():
+            _replay(instrs)
+        return st.plaintexts[d]
+
+
+def _replay(instrs) -> None:
+    """Record captured ``fhe.trace`` instructions into the active trace."""
+    for i in instrs:
+        trace.record(i.op, i.n, i.limbs, **i.meta)
 
 
 # ---------------------------------------------------------------------------
@@ -200,9 +283,14 @@ def _apply_bsgs(ctx, ct: ops.Ciphertext, plan: BsgsPlan,
     the group has fewer than two rotations), "never" key-switches each baby
     separately.  All modes are bit-exact against each other.  Giant-step
     rotations apply to *different* ciphertexts (the per-group partial sums),
-    so they cannot share a ModUp and always run the standard path.  Each
-    diagonal's plaintext comes from the plan (``BsgsPlan.plaintext``), encoded
-    on the first application at this level and scale only.
+    so they cannot share a ModUp and always run the standard path.
+
+    The diagonals come from the plan's stack (``BsgsPlan.stack``), encoded on
+    the first application at this level and scale only, and every group's
+    Σ_d pt_d ∘ baby_{d mod n1} is one ``bsgs_mac`` launch (an ``fhe.bsgs.mac``
+    span): the reference's residues, with its ``PMULT``/``PADD`` instructions
+    recorded for each diagonal in its order, in place of its ``mulmod`` and
+    ``addmod`` dispatches.
     """
     with span("fhe.bsgs"):
         params = ctx.params
@@ -219,17 +307,22 @@ def _apply_bsgs(ctx, ct: ops.Ciphertext, plan: BsgsPlan,
             for b in needed_b:
                 babies[b] = ops._rotate_standard(ctx, ct, b, keys)
 
-        by_giant: dict[int, list[int]] = {}
-        for d in plan.diags:
-            by_giant.setdefault(d // plan.n1, []).append(d)
+        st, encoded = plan.stack(ctx, lv, scale)
+        with span("fhe.bsgs.mac"):
+            rows = torch.stack([c for b in st.babies for c in (babies[b].c0, babies[b].c1)])
+            parts = bsgsmac.bsgs_mac(st.data, rows.view(len(st.babies), 2, lv + 1, params.n), st.baby_idx,
+                                     st.offsets, ops._qs(params, lv))
 
+        tracing = trace.tracing()
         total: ops.Ciphertext | None = None
-        for g, ds in sorted(by_giant.items()):
-            acc: ops.Ciphertext | None = None
-            for d in ds:
-                pt = plan.plaintext(ctx, d, lv, scale)
-                term = ops._mul_plain(ctx, babies[d % plan.n1], pt, rescale_after=False)
-                acc = term if acc is None else ops._add(ctx, acc, term)
+        for i, (g, ds) in enumerate(plan.giant_groups()):
+            if tracing:
+                for k, d in enumerate(ds):
+                    _replay(encoded.get(d, ()))
+                    trace.record("PMULT", params.n, 2 * (lv + 1))
+                    if k:
+                        trace.record("PADD", params.n, 2 * (lv + 1))
+            acc = ops.Ciphertext(parts[i, 0], parts[i, 1], lv, ct.scale * scale)
             if g:
                 acc = ops._rotate_standard(ctx, acc, g * plan.n1, keys)
             total = acc if total is None else ops._add(ctx, total, acc)

@@ -8,7 +8,8 @@ with hoisted baby-step groups; the reference runs its ``ref`` backend (its
 fused one would run in Pallas interpret mode), and the trace streams and
 dispatch counts are compared with the port under ``ref`` too, through plans
 that hold no encoded diagonal yet: the reference's less the NTT of each real
-constant, which the port builds with none.  The last
+constant, which the port builds with none, and with each BSGS matvec's
+products and sums as one ``bsgsmac`` dispatch (``reference_bsgs``).  The last
 tests check the reference's keys carried in through ``convert``, the digest
 ``chip_smoke.py`` checks on the card, and ModRaise at the
 ``packed_bootstrap`` preset's full width (N = 2^16, 58 limbs).
@@ -21,6 +22,7 @@ import types
 
 import numpy as np
 import pytest
+import reference_bsgs
 import reference_constants
 import torch
 
@@ -91,9 +93,11 @@ def ref():
     with reference_constants.track() as marks:
         with R_trace.capture_trace() as t, R_dispatch.count_dispatches() as c:
             s.out = fc.bootstrap(bctx, ct, post_scale=1 / ATT)
-    # the port's streams: these less the NTT and the ``ntt`` dispatch of each real constant
+    # the port's streams: these less the NTT and the ``ntt`` dispatch of each real
+    # constant, and its counts with each of the four matvecs' products and sums in one launch
+    port_counts = reference_bsgs.port_counts(marks.counts(c, t), (*bctx.cts_plans, *bctx.stc_plans))
     return types.SimpleNamespace(p=p, bctx=bctx, fc=fc, z=z, ct=ct, s=s, trace=list(t), counts=dict(c),
-                                 port_trace=marks.stream(t), port_counts=marks.counts(c, t),
+                                 port_trace=marks.stream(t), port_counts=port_counts,
                                  constants=len(marks.of(t)))
 
 
@@ -213,7 +217,8 @@ def test_stage_traces_and_dispatches_match_reference(ref, port):
             getattr(tfc, stage)(_fresh_plans(port.bctx), port.ct if stage == "mod_raise" else port.s.raised)
         with R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
             getattr(rfc, stage)(ref.bctx, ref.ct if stage == "mod_raise" else ref.s.raised)
-        assert _stream(tt) == _stream(rt) and tc == rc, stage
+        plans = ref.bctx.cts_plans if stage == "coeff_to_slot" else ()
+        assert _stream(tt) == _stream(rt) and tc == reference_bsgs.port_counts(rc, plans), stage
 
 
 def test_bootstrap_context_and_device_rules(port):

@@ -1,11 +1,14 @@
 """The BSGS plan's plaintexts on the CPU at n = 2^9, against the reference package.
 
-``BsgsPlan.plaintext`` encodes a diagonal, pre-rotated by its giant step, the
-first time the plan is applied at a level and scale, and hands the same
-plaintext back on every later application (an ``fhe.bsgs.diag_hit`` span each).
-A kept plaintext is the fresh encoding bit for bit, so every answer stays the
-reference's bytes.  The streams follow the contract of ``ROADMAP.md`` Queue 3:
-on a hit, the port's ``fhe.trace`` stream and dispatch counts are the
+``BsgsPlan.stack`` encodes every diagonal, pre-rotated by its giant step, into
+its row of one stack the first time the plan is applied at a level and scale,
+and hands the same stack back on every later application (one
+``fhe.bsgs.diag_hit`` span a matvec); ``BsgsPlan.plaintext`` is a diagonal's
+row.  A kept plaintext is the fresh encoding bit for bit, so every answer stays
+the reference's bytes.  The streams follow the contracts of ``ROADMAP.md``
+Queue 3: a matvec's products and sums are one ``bsgsmac`` dispatch in place of
+the reference's ``mulmod``s and ``addmod``s (``reference_bsgs``), and on a hit
+the port's ``fhe.trace`` stream and dispatch counts are, besides, the
 reference's less the ``NTT`` (n, ℓ+1) instruction and the ``ntt`` dispatch of
 each kept diagonal, at the position where the reference encodes it.
 """
@@ -17,6 +20,7 @@ import weakref
 
 import numpy as np
 import pytest
+import reference_bsgs
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -148,7 +152,8 @@ def test_second_application_encodes_nothing_and_gives_the_same_bytes(setup, tmp_
     assert _same(first, second)
     assert cold.count("fhe.encode") == len(DIAGS) and "fhe.bsgs.diag_hit" not in cold
     assert "fhe.encode" not in warm and "fhe.encode.upload" not in warm
-    assert warm.count("fhe.bsgs.diag_hit") == len(DIAGS) and warm.count("fhe.bsgs") == 1
+    assert warm.count("fhe.bsgs.diag_hit") == 1 and warm.count("fhe.bsgs") == 1
+    assert cold.count("fhe.bsgs.mac") == warm.count("fhe.bsgs.mac") == 1
     np.testing.assert_allclose(tctx.decrypt_decode(second),
                                sum(s.diags[d] * np.roll(s.z, -d) for d in DIAGS), atol=2e-2)
 
@@ -168,13 +173,14 @@ def test_a_hit_drops_one_ntt_a_diagonal_where_the_reference_encodes_it(setup, di
     with R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
         want = rctx.apply_bsgs(s.rct, s.rplan())
     _ct_eq(got, want)
-    assert _stream(miss) == _stream(rt) and miss_counts == rc
+    port = reference_bsgs.port_counts(rc, [plan])
+    assert _stream(miss) == _stream(rt) and miss_counts == port
     assert len(diagonal_ntts) == len(DIAGS)
     for i in diagonal_ntts:
         assert (rt[i].op, rt[i].n, rt[i].limbs) == ("NTT", s.tp.n, s.tp.L + 1)
     dropped = set(diagonal_ntts)
     assert _stream(hit) == _stream([ins for i, ins in enumerate(rt) if i not in dropped])
-    assert hit_counts == {**rc, "ntt": rc["ntt"] - len(DIAGS)}
+    assert hit_counts == {**port, "ntt": rc["ntt"] - len(DIAGS)}
 
 
 def test_hit_drops_the_ntt_dispatches_under_the_fused_pipeline(setup):
@@ -195,16 +201,19 @@ def test_other_levels_and_scales_keep_plaintexts_of_their_own(setup):
     low = T_ops.level_drop(s.tct, 3)
     runs = [(s.tct, None), (low, None), (s.tct, 2.0 ** 26), (low, 2.0 ** 26)]
     outs = [s.tctx.apply_bsgs(ct, plan, scale=scale) for ct, scale in runs]
-    assert len(plan._plaintexts) == len(runs) * len(DIAGS)
-    for (d, level, scale, device, params), pt in plan._plaintexts.items():
-        assert pt.level == level and pt.scale == scale and tuple(pt.data.shape) == (level + 1, s.tp.n)
-        assert device == s.tctx.device and params is s.tp and d in DIAGS
+    assert len(plan._stacks) == len(runs)
+    for (level, scale, device, params), st in plan._stacks.items():
+        assert tuple(st.data.shape) == (len(DIAGS), level + 1, s.tp.n) and sorted(st.plaintexts) == sorted(DIAGS)
+        for pt in st.plaintexts.values():
+            assert pt.level == level and pt.scale == scale and tuple(pt.data.shape) == (level + 1, s.tp.n)
+            assert pt.data.data_ptr() in {row.data_ptr() for row in st.data}  # a row of the stack, no copy
+        assert device == s.tctx.device and params is s.tp
     # applied again, in another order, each answer is that of a plan fresh at its level and scale
     for (ct, scale), out in reversed(list(zip(runs, outs))):
         again = s.tctx.apply_bsgs(ct, plan, scale=scale)
         assert _same(again, out) and _same(again, s.tctx.apply_bsgs(ct, s.tplan(), scale=scale))
         assert again.level == ct.level - 1
-    assert len(plan._plaintexts) == len(runs) * len(DIAGS)
+    assert len(plan._stacks) == len(runs)
     rlow = R_ops.level_drop(s.rct, 3)
     _ct_eq(s.tctx.apply_bsgs(low, plan, scale=2.0 ** 26), s.rctx.apply_bsgs(rlow, s.rplan(), scale=2.0 ** 26))
 
@@ -214,8 +223,8 @@ def test_plan_equality_rotations_and_repr_are_unchanged(setup):
     plan, rplan = s.tplan(), s.rplan()
     before = (plan.rotations(), plan.baby_steps(), plan.giant_steps(), repr(plan))
     s.tctx.apply_bsgs(s.tct, plan)
-    assert plan._plaintexts and plan == s.tplan() and dataclasses.replace(plan) == plan
-    assert not dataclasses.replace(plan)._plaintexts
+    assert plan._stacks and plan == s.tplan() and dataclasses.replace(plan) == plan
+    assert not dataclasses.replace(plan)._stacks
     assert (plan.rotations(), plan.baby_steps(), plan.giant_steps(), repr(plan)) == before
     assert plan.rotations() == rplan.rotations() and plan.n1 == rplan.n1 == N1
     assert plan.baby_steps() == rplan.baby_steps() == (1, 2, 3)
@@ -226,8 +235,11 @@ def test_plaintexts_are_freed_with_the_plan(setup):
     s = setup
     plan = s.tplan()
     s.tctx.apply_bsgs(s.tct, plan)
-    kept = [weakref.ref(pt.data) for pt in plan._plaintexts.values()]
-    assert len(kept) == len(DIAGS) and all(r() is not None for r in kept)
+    (st,) = plan._stacks.values()
+    kept = [weakref.ref(st.data), weakref.ref(st.baby_idx), weakref.ref(st.offsets)]
+    kept += [weakref.ref(pt.data) for pt in st.plaintexts.values()]
+    assert len(kept) == 3 + len(DIAGS) and all(r() is not None for r in kept)
+    del st
     del plan
     gc.collect()
     assert all(r() is None for r in kept)

@@ -27,6 +27,8 @@ from repro_torch.fhe import poly, rns
 from repro_torch.fhe.context import ExecPolicy, FheContext
 from repro_torch.kernels.bconv import ops as bops
 from repro_torch.kernels.bconv import ref as bref
+from repro_torch.kernels.bsgsmac import ops as bmops
+from repro_torch.kernels.bsgsmac import ref as bmref
 from repro_torch.kernels.fusedks import ops as fops
 from repro_torch.kernels.fusedks import ref as fref
 from repro_torch.kernels.hoistrot import ops as hops
@@ -202,6 +204,46 @@ def test_hoist_mac_is_built_for_every_preset_digit_count(card):
     assert torch.equal(hops.galois_mac(dig, ksk, p, level), href.galois_mac_ref(dig, ksk, p, level))
 
 
+def _mac_operands(p, level, n1, diagonals, seed, device):
+    """``bsgs_mac``'s operands for a plan of ``diagonals`` at ``level`` of ``p``,
+    in the plan's layout, with seeded residues."""
+    rows, babies, idx, offsets = linear.BsgsPlan(n1=n1, diags=dict.fromkeys(diagonals)).mac_layout()
+    qs = p.q_primes[: level + 1]
+    diags = _residues((len(rows) * (level + 1), p.n), qs * len(rows), seed, device).reshape(len(rows), -1, p.n)
+    bab = _residues((2 * len(babies) * (level + 1), p.n), qs * (2 * len(babies)), seed + 1, device)
+    idx, offsets = (torch.tensor(v, dtype=torch.int32, device=device) for v in (idx, offsets))
+    return diags, bab.reshape(len(babies), 2, level + 1, p.n), idx, offsets, qs
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_bsgs_mac_kernel_matches_plain(card, i):
+    """``chip_smoke.BSGS_MAC_CASES``: one of the LSTM step's plans at N = 2^16,
+    14 limbs, and LoLa-MNIST's three at N = 2^13."""
+    cases = _chip_smoke().BSGS_MAC_CASES
+    assert len(cases) == 4
+    preset, level, n1, diagonals = cases[i]
+    p = P.workload_params(preset)
+    diags, rows, idx, offsets, qs = _mac_operands(p, level, n1, diagonals, level, card)
+    before = bmops.KERNEL.launches
+    got = bmops.bsgs_mac(diags, rows, idx, offsets, qs)
+    torch.cuda.synchronize()
+    assert bmops.KERNEL.launches == before + 1
+    assert got.shape == (offsets.numel() - 1, 2, level + 1, p.n)
+    assert torch.equal(got, bmref.bsgs_mac_ref(diags, rows, idx, offsets, qs))
+
+
+def test_bsgs_mac_kernel_refuses_what_it_does_not_take(card):
+    p = P.workload_params("lola_mnist_plain")
+    diags, rows, idx, offsets, qs = _mac_operands(p, 2, 4, tuple(range(16)), 0, card)
+    before = bmops.KERNEL.launches
+    for bad in ((diags, rows.cpu(), idx, offsets, qs), (diags, rows[:, :1], idx, offsets, qs),
+                (diags, rows, idx.long(), offsets, qs), (diags, rows, idx[:-1], offsets, qs),
+                (diags, rows, idx, offsets, qs[:-1]), (diags[:, :, 2:], rows[..., 2:], idx, offsets, qs)):
+        with pytest.raises((ValueError, TypeError)):
+            bmops.bsgs_mac(*bad)
+    assert bmops.KERNEL.launches == before
+
+
 def test_staged_pipeline_and_rotations_on_the_card_equal_the_cpu(card):
     p = P.make_params(1 << 9, 5, 2, check_security=False)
     z = np.random.default_rng(0).normal(size=p.slots) * 0.4
@@ -364,9 +406,10 @@ def test_eval_poly_builds_its_constants_on_the_card(card, tmp_path):
 def test_second_bsgs_application_copies_no_diagonal_to_the_card(card, tmp_path):
     """A plan applied again at the same level and scale reads its diagonals'
     plaintexts back from the card: under torch.profiler the second matvec at
-    N = 2^13 opens one ``fhe.bsgs.diag_hit`` span a diagonal and no
-    ``fhe.encode``, issues no host-to-device copy, and gives the first call's
-    ciphertext bit for bit (and the CPU port's)."""
+    N = 2^13 opens one ``fhe.bsgs.diag_hit`` span and no ``fhe.encode``, runs
+    its products and sums as one ``bsgs_mac`` kernel in one ``fhe.bsgs.mac``
+    span, issues no host-to-device copy, and gives the first call's ciphertext
+    bit for bit (and the CPU port's)."""
     from torch.profiler import ProfilerActivity, profile
 
     p = P.workload_params("lola_mnist_plain")
@@ -392,8 +435,8 @@ def test_second_bsgs_application_copies_no_diagonal_to_the_card(card, tmp_path):
     prof.export_chrome_trace(str(tmp_path / "t.json"))
     events = [e for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"] if e.get("ph") == "X"]
     spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
-    assert spans.count("fhe.bsgs.diag_hit") == len(diags) and "fhe.encode" not in spans
-    assert any(e.get("cat") == "kernel" for e in events)
+    assert spans.count("fhe.bsgs.diag_hit") == spans.count("fhe.bsgs.mac") == 1 and "fhe.encode" not in spans
+    assert sum(1 for e in events if e.get("cat") == "kernel" and "bsgs_mac" in e["name"]) == 1
     assert not [e["name"] for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
 
 

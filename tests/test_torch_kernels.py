@@ -26,6 +26,7 @@ from repro_torch.fhe import poly as T_poly
 from repro_torch.fhe import rns as T_rns
 from repro_torch.kernels import cuda, dispatch
 from repro_torch.kernels.bconv import ops as T_bconv
+from repro_torch.kernels.bsgsmac import ops as T_bsgsmac
 from repro_torch.kernels.fusedks import ops as T_fops
 from repro_torch.kernels.hoistrot import ops as T_hops
 from repro_torch.kernels.hoistrot import ref as T_hoistref
@@ -96,8 +97,12 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         T_hops.galois_mac(torch.empty((1, 4, 256), dtype=torch.int32, device="meta"),
                           torch.empty((1, 1, 2, 4, 256), dtype=torch.int32, device="meta"), p, 2)
+    meta = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        T_bsgsmac.bsgs_mac(meta(3, 2, 256), meta(2, 2, 2, 256), meta(3), meta(3), qs)
     assert (T_mo.KERNEL.launches, T_nttops.KERNEL.launches) == launches
     assert (T_bconv.KERNEL.launches, T_hops.HOIST_MODUP.launches, T_hops.HOIST_MAC.launches) == (0, 0, 0)
+    assert T_bsgsmac.KERNEL.launches == 0
 
 
 def test_u32_tensor_keeps_bit_patterns():

@@ -2,8 +2,9 @@
 
 Under ``torch.profiler`` each span is a ``user_annotation`` event of the Chrome
 trace, the events the benchmark's readers take: ``apply_bsgs`` of a fresh plan
-encodes one diagonal per ``fhe.encode`` inside its ``fhe.bsgs`` and key-switches once per
-baby group (or baby rotation) and giant rotation; a Chebyshev evaluation shows
+encodes one diagonal per ``fhe.encode`` inside its ``fhe.bsgs``, key-switches once per
+baby group (or baby rotation) and giant rotation, and runs its products and
+sums in one ``fhe.bsgs.mac``; a Chebyshev evaluation shows
 one ``fhe.encode_const`` per ``_encode_const`` call under ``fhe.cheb.basis`` or
 ``fhe.cheb.combine``, each holding one ``fhe.encode.const_column``; a cold
 table cache shows ``fhe.table.*`` spans and a warm one none.  With the profiler off ``span`` is one shared no-op, and on or off the
@@ -95,6 +96,10 @@ def test_bsgs_encodes_each_diagonal_inside_its_span(setup, tmp_path, hoisting, b
         assert len(_named(spans, part)) == len(DIAGS) and all(_inside(s, encodes) for s in _named(spans, part))
     switches = _named(spans, "fhe.keyswitch")
     assert len(switches) == baby_switches + len(plan.giant_steps()) and all(_inside(s, bsgs) for s in switches)
+    # the products and sums of every giant group: one span inside the matvec's, around no encode or key-switch
+    macs = _named(spans, "fhe.bsgs.mac")
+    assert len(macs) == 1 and _inside(macs[0], bsgs)
+    assert not any(_inside(s, macs) for s in encodes + switches)
     assert len(_named(spans, "fhe.rescale")) == 1
     assert all(s[2].startswith("fhe.") for s in spans)
 
