@@ -6,15 +6,16 @@ kernels compute in int64 and the kernels read the buffers as uint32_t.
 Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``;
 params with ``plain_modulus`` set make a BGV context), and the modules
 ``linear`` (BSGS planning), ``polyeval`` (Chebyshev evaluation),
-``bootstrap`` (``build_context``), ``lstm`` (one LSTM step's plan) and ``bgv``
-(its ciphertext types), exported lazily so that ``repro_torch.fhe.params`` and
-friends stay cheap.
+``bootstrap`` (``build_context``), ``lstm`` (one LSTM step's plan), ``logreg``
+(a period of logistic-regression training) and ``bgv`` (its ciphertext
+types), exported lazily so that ``repro_torch.fhe.params`` and friends stay
+cheap.
 """
 
 import importlib
 
 _CONTEXT_EXPORTS = ("FheContext", "ExecPolicy")
-_LAZY_MODULES = ("linear", "polyeval", "bootstrap", "bgv", "lstm")
+_LAZY_MODULES = ("linear", "polyeval", "bootstrap", "bgv", "lstm", "logreg")
 
 
 def __getattr__(name):

@@ -13,7 +13,7 @@
 
 Quick use::
 
-    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, lstm, keys as K, params as P
+    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, logreg, lstm, keys as K, params as P
 
     p = P.workload_params("matmul")
     ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=(1, 2)))
@@ -24,6 +24,7 @@ Quick use::
     mv = ctx.apply_bsgs(ct, plan)                 # needs keys for plan.rotations()
     y = ctx.eval_poly(ct, coeffs)                 # Σ c_i·T_i(x), Chebyshev basis
     h1, c1 = ctx.lstm_step(lstm.build_plan(W, U, b, p), x, h0, c0)   # one LSTM step
+    w4, v4 = ctx.logreg_step(logreg.build_plan(p, 256, 256, rates, momenta), zs, w0, v0)  # HELR training
 
     sp = P.workload_params("psi")                 # plain_modulus set: a BGV context
     bgv = FheContext(params=sp, keys=K.full_keyset(sp, seed=0))
@@ -47,7 +48,7 @@ from repro_torch.kernels import dispatch
 
 from . import bgv as _bgv
 from . import bootstrap as _bootstrap
-from . import keyswitch, linear, lstm, ops, polyeval
+from . import keyswitch, linear, logreg, lstm, ops, polyeval
 from .keys import KeySet, SwitchingKey
 from .params import CkksParams
 
@@ -398,6 +399,12 @@ class FheContext:
         """(h_t, c_t) of one LSTM step: the gates' BSGS matvecs, the polynomial
         activations and the cell's products (``repro_torch.fhe.lstm``)."""
         return lstm._lstm_step(self, plan, x, h, c)
+
+    @_hooked
+    def logreg_step(self, plan: logreg.LogregPlan, zs, w, v):
+        """(w_k, v_k) after one period of encrypted logistic-regression training:
+        k Nesterov iterations on the batch's ciphertexts zs (``repro_torch.fhe.logreg``)."""
+        return logreg._logreg_step(self, plan, zs, w, v)
 
     # -- bootstrapping -------------------------------------------------------
 

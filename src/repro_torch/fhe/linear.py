@@ -232,6 +232,13 @@ def choose_n1(diag_indices, params: CkksParams, level: int, hoisted: bool) -> in
     )
 
 
+def pack(v: np.ndarray, slots: int) -> np.ndarray:
+    """A width-p vector replicated with period p over the slots: the layout that a
+    matvec over period-p diagonals (``plan_diags``) reads and writes."""
+    v = np.asarray(v, np.float64)
+    return np.tile(v, slots // v.shape[0])
+
+
 def plan_matrix(m: np.ndarray, n1: int | None = None, tol: float = 0.0,
                 params: CkksParams | None = None, level: int | None = None,
                 hoisting: bool = False) -> BsgsPlan:

@@ -28,21 +28,10 @@ from repro_torch.obs.spans import span
 from . import linear, ops, polyeval
 from .params import CkksParams
 
-SIGMOID3 = (0.5, 0.15012, 0.0, -0.0015930)  # power coefficients, least squares on [−8, 8]
 TANH3 = (0.0, 0.60048, 0.0, -0.025488)  # 2·σ3(2x) − 1, least squares on [−4, 4]
 BOUNDS = (8.0, 8.0, 8.0, 4.0)  # the fit interval [−B, B] of each gate, in the order f, i, o, c̃
 CELL_BOUND = 4.0  # tanh3 of c_t, on [−4, 4]
-
-
-def chebyshev_on_unit(power, bound: float) -> np.ndarray:
-    """Chebyshev coefficients of t ↦ p(bound·t) on [−1, 1], p in the power basis."""
-    return np.polynomial.chebyshev.poly2cheb([c * bound**k for k, c in enumerate(power)])
-
-
-def pack(v: np.ndarray, slots: int) -> np.ndarray:
-    """A width-p vector replicated with period p over the slots."""
-    v = np.asarray(v, np.float64)
-    return np.tile(v, slots // v.shape[0])
+pack = linear.pack  # the layout of x, h and c
 
 
 def _diagonals(m: np.ndarray, slots: int) -> dict[int, np.ndarray]:
@@ -50,7 +39,7 @@ def _diagonals(m: np.ndarray, slots: int) -> dict[int, np.ndarray]:
     diagonal d holds m[i mod p, (i + d) mod p]."""
     p = m.shape[0]
     rows = np.arange(p)
-    return {d: pack(m[rows, (rows + d) % p], slots) for d in range(p)}
+    return {d: linear.pack(m[rows, (rows + d) % p], slots) for d in range(p)}
 
 
 @dataclasses.dataclass
@@ -89,8 +78,9 @@ def build_plan(W: np.ndarray, U: np.ndarray, b: np.ndarray, params: CkksParams, 
         w=tuple(plan(W[g] / BOUNDS[g]) for g in range(4)),
         u=tuple(plan(U[g] / BOUNDS[g]) for g in range(4)),
         bias=tuple(b[g] / BOUNDS[g] for g in range(4)),
-        gate_coeffs=tuple(chebyshev_on_unit(SIGMOID3 if g < 3 else TANH3, BOUNDS[g]) for g in range(4)),
-        cell_coeffs=chebyshev_on_unit(TANH3, CELL_BOUND),
+        gate_coeffs=tuple(polyeval.chebyshev_on_unit(polyeval.SIGMOID3 if g < 3 else TANH3, BOUNDS[g])
+                          for g in range(4)),
+        cell_coeffs=polyeval.chebyshev_on_unit(TANH3, CELL_BOUND),
     )
 
 

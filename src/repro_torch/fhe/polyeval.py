@@ -29,6 +29,14 @@ from repro_torch.obs.spans import span
 from . import ops
 
 
+SIGMOID3 = (0.5, 0.15012, 0.0, -0.0015930)  # σ3: power coefficients, least squares on [−8, 8] (Kim et al. 2018)
+
+
+def chebyshev_on_unit(power, bound: float) -> np.ndarray:
+    """Chebyshev coefficients of t ↦ p(bound·t) on [−1, 1], p in the power basis."""
+    return np.polynomial.chebyshev.poly2cheb([c * bound**k for k, c in enumerate(power)])
+
+
 def chebyshev_fit(f, degree: int, k: float = 1.0) -> np.ndarray:
     """Chebyshev coefficients of f on [-k, k] (degree+1 coeffs)."""
     cheb = np.polynomial.chebyshev.Chebyshev.interpolate(f, degree, domain=[-k, k])
