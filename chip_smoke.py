@@ -20,8 +20,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and NTTs, the bootstrap ring's BConv and NTT, and the BGV presets' shapes
      that no other case has (``exact_count``'s products, its t-scaling product
      by a per-limb column over the extended basis, its NTT, key-switch kernels
-     and BConvs; ``psi``'s ``fused_ks``), and ``bsgs_mac`` at one of the
-     ``lstm`` step's BSGS plans and LoLa-MNIST's three (``BSGS_MAC_CASES``)
+     and BConvs; ``psi``'s ``fused_ks``), ``bsgs_mac`` at one of the
+     ``lstm`` step's BSGS plans and LoLa-MNIST's three (``BSGS_MAC_CASES``),
+     and ``fused_rescale`` from the top level of ``lola_mnist_plain``,
+     ``lstm``, ``logreg`` and ``packed_bootstrap`` (57 → 56, by pass)
      — bit-exact, launched, timed with CUDA events; the two-pass kernels (NTT,
      ``fused_ks``, ``fused_moddown``, ``hoist_modup``) print the thread blocks
      their launcher starts per pass, and BConv its grid;
@@ -40,7 +42,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
            SlotToCoeff) at the ring of ``tests/test_bootstrap.py``
            (n = 2^8, L = 18, dnum = 1), under the default policy (fused,
            hoisted) and under ``ExecPolicy(backend="staged")``: every one of
-           the eight kernels launches;
+           the nine kernels launches;
        3e. ModRaise (1 → 58 limbs) and EvalMod (a degree-32 Chebyshev tree,
            31 relinearisations with one key-switch digit) at the
            ``packed_bootstrap`` preset's full width (N = 2^16, L = 57);
@@ -141,6 +143,24 @@ REFERENCE = {
 }
 # Dispatches of one fused ctx.mul (rescale included) in the reference package.
 FUSED_MUL_DISPATCHES = {"mulmod": 6, "addmod": 3, "submod": 2, "ntt": 2, "intt": 4, "fusedks": 1, "fused_moddown": 1}
+# The reference's dispatches of one component of a rescale, in order.  Under the
+# fused pipeline the port rescales both components in one ``rescale`` dispatch
+# (one fused_rescale launch); the staged pipeline keeps the reference's.
+RESCALE_OPS = ("intt", "ntt", "submod", "mulmod")
+
+
+def fused_rescale_counts(ref_counts: dict, rescales: int) -> dict:
+    """The reference's dispatch counts of a block that ran ``rescales``
+    rescales, as the port's under the fused pipeline: 2 of each of
+    ``RESCALE_OPS`` fewer, one ``rescale`` more, a rescale (ROADMAP Queue 3)."""
+    out = dict(ref_counts)
+    for op in RESCALE_OPS:
+        out[op] = out.get(op, 0) - 2 * rescales
+    out["rescale"] = out.get("rescale", 0) + rescales
+    assert all(v >= 0 for v in out.values()), out
+    return {k: v for k, v in out.items() if v}
+
+
 # ... and of one staged ctx.mul, per preset (β = 3 at matmul, 2 at lstm).
 STAGED_MUL_DISPATCHES = {
     "matmul": {"mulmod": 19, "addmod": 9, "submod": 4, "ntt": 7, "intt": 5, "bconv": 5},
@@ -255,7 +275,20 @@ EXECUTOR = dict(
 # a of REFERENCE["lstm"]); names_sha256 is the SHA-256 of its slice names joined
 # by "\n", one slice per kernel dispatch, in dispatch order.
 TRACED_MUL = dict(preset="lstm", backend="fused", slices=19,
-                  names_sha256="f00c2a8610c354dc8b5057c5616e48ab190c4ff9b4fe4fae11cba1a60f3f2fee")
+                  names_sha256="f00c2a8610c354dc8b5057c5616e48ab190c4ff9b4fe4fae11cba1a60f3f2fee",
+                  names=("mulmod", "mulmod", "mulmod", "mulmod", "addmod", "intt", "fusedks", "intt",
+                         "fused_moddown", "addmod", "addmod") + RESCALE_OPS * 2)
+
+
+def traced_mul_port_names() -> list:
+    """``TRACED_MUL``'s slice names as the port's: the closing rescale's
+    reference dispatches (``RESCALE_OPS`` of each component) as one ``rescale``."""
+    names = list(TRACED_MUL["names"])
+    assert len(names) == TRACED_MUL["slices"] and names_sha256(names) == TRACED_MUL["names_sha256"]
+    tail = 2 * len(RESCALE_OPS)
+    return names[:-tail] + ["rescale"]
+
+
 # Phase 3h, the scheduling layer: SHA-256 of the obs smoke scenario's Chrome
 # export (dumps_chrome_trace of obs_smoke_fleet), of json.dumps(summary,
 # sort_keys=True) of each of SERVING_SCENARIOS, and of plan_and_price_blob
@@ -281,7 +314,7 @@ BSGS_MAC_CASES = (("lstm", 13, 8, tuple(range(128))), ("lola_mnist_plain", 6, 14
 # Which kernel each dispatch op launches.
 KERNEL_OF = {"mulmod": "modops", "addmod": "modops", "submod": "modops", "ntt": "ntt", "intt": "ntt",
              "fusedks": "fused_ks", "fused_moddown": "fused_moddown", "bconv": "bconv",
-             "hoistmodup": "hoist_modup", "hoistmac": "hoist_mac", "bsgsmac": "bsgs_mac"}
+             "hoistmodup": "hoist_modup", "hoistmac": "hoist_mac", "bsgsmac": "bsgs_mac", "rescale": "fused_rescale"}
 
 # H100 SXM peaks.  Memory: 3.35 TB/s (NVIDIA data sheet).  Integer
 # instructions: an SM issues at most 4 warp instructions a clock, 128 thread
@@ -695,7 +728,7 @@ def phase_3h(kernels, paths, launches_of, lstm, mlp, psi, exact, mul, smi) -> in
     h_launched = {k: sum(paths[f"3h {label}"][k] for label, _, _ in cases) for k in kernels}
     print(f"  kernel launches over the {len(cases)} ops: {h_launched}")
     if min(h_launched[k] for k in ("modops", "ntt", "fused_ks", "fused_moddown", "bconv", "hoist_modup",
-                                    "hoist_mac", "bsgs_mac")) < 1:
+                                    "hoist_mac", "bsgs_mac", "fused_rescale")) < 1:
         problems.append(f"a kernel of phase 3h was not launched: {h_launched}")
     if problems:
         print("FAILED planner parity: " + "; ".join(problems), file=sys.stderr)
@@ -710,16 +743,17 @@ def phase_3h(kernels, paths, launches_of, lstm, mlp, psi, exact, mul, smi) -> in
     torch.cuda.synchronize()
     paths["3h traced mul"] = launched = read_launches()
     trace_problems = obs.validate_chrome_trace(obs.to_chrome_trace(tracer))
-    nsha = names_sha256(names)
+    want_names = traced_mul_port_names()
     print(f"  {len(names)} slices, {dispatch.total(counts)} dispatches, {sum(launched.values())} launches, "
-          f"names sha256 {nsha[:16]} (reference {TRACED_MUL['names_sha256'][:16]}), "
+          f"names sha256 {names_sha256(names)[:16]} (the reference's {TRACED_MUL['names_sha256'][:16]}, "
+          f"its rescale as one dispatch: {names_sha256(want_names)[:16]}), "
           f"export problems {trace_problems}, digest {digest(out)[:16]}")
     problems = []
-    if not (len(names) == TRACED_MUL["slices"] == dispatch.total(counts) == sum(launched.values())
-            == sum(FUSED_MUL_DISPATCHES.values())):
+    if not (len(names) == len(want_names) == dispatch.total(counts) == sum(launched.values())
+            == sum(fused_rescale_counts(FUSED_MUL_DISPATCHES, 1).values())):
         problems.append(f"{len(names)} slices, {dispatch.total(counts)} dispatches, {launched} launches")
-    if nsha != TRACED_MUL["names_sha256"] or trace_problems:
-        problems.append(f"names {names} (sha256 {nsha}), export problems {trace_problems}")
+    if names != want_names or trace_problems:
+        problems.append(f"names {names} != {want_names}, export problems {trace_problems}")
     if launched != launches_of(counts) or digest(out) != REFERENCE[TRACED_MUL["preset"]]["digest"]:
         problems.append(f"launches {launched}, digest {digest(out)}")
     if problems:
@@ -1608,6 +1642,8 @@ def phases() -> int:
     from repro_torch.kernels.modops import ref as mref
     from repro_torch.kernels.ntt import ops as nops
     from repro_torch.kernels.ntt import ref as nref
+    from repro_torch.kernels.rescale import ops as rsops
+    from repro_torch.kernels.rescale import ref as rsref
 
     # -- 1. card and build ------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1639,6 +1675,8 @@ def phases() -> int:
                           replaces="src/repro/kernels/hoistrot/kernel.py:111 (hoist_mac_pallas)"),
         "bsgs_mac": dict(k=bmops.KERNEL, source="src/repro_torch/csrc/bsgsmac.cu",
                          replaces="none: a BSGS matvec's mulmod_pallas and addmod_pallas chain, one launch"),
+        "fused_rescale": dict(k=rsops.KERNEL, source="src/repro_torch/csrc/rescale.cu",
+                              replaces="none: a rescale's ntt_pallas, int64 arithmetic and modops chain, one launch"),
     }
     for v in kernels.values():
         v["cases"] = []
@@ -1823,6 +1861,26 @@ def phases() -> int:
               (nd + 2 * nb + 2 * ng) * l * p.n * WORD, 2 * l * p.n * (nd * (MONTMUL + 2) + ng * 2 * MONTMUL))
         del dg, bab
 
+    # both components' rescale in one launch, from the top level of the cells'
+    # presets: lola_mnist_plain (N = 2^13), lstm, logreg and packed_bootstrap
+    # (57 → 56, EvalMod's first); the device time of each pass from the profiler
+    for name in (MLP["preset"], "lstm", "logreg", PACKED["preset"]):
+        p = P.workload_params(name)
+        n, level = p.n, p.L
+        qs = p.q_primes[: level + 1]
+        c0, c1 = rand_residues((level + 1, n), qs, gen), rand_residues((level + 1, n), qs, gen)
+        # read both components once and write both outputs; the iNTT of 2 limbs and
+        # the NTT of 2·level, then a submod and a montmul an output word
+        check("fused_rescale", f"{name} level={level} -> {level - 1} 2 x ({level + 1}, {n})",
+              lambda: rsops.rescale(c0, c1, p, level), lambda: rsref.rescale_ref(c0, c1, p, level),
+              (2 * (level + 1) + 2 * level) * n * WORD,
+              (2 + 2 * level) * ntt_ops_per_limb(n) + 2 * level * n * (ADDMOD + MONTMUL))
+        if name == PACKED["preset"]:
+            _, _, by_name = device_busy(lambda: rsops.rescale(c0, c1, p, level))
+            print(f"    fused_rescale at {name} by pass (profiler, ms): "
+                  + ", ".join(f"{k[:48]} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])))
+        del c0, c1
+
     # one key-switch digit (β = 1) at packed_bootstrap's top level: 58 → 116
     # limbs, the shapes of EvalMod's first relinearisations (phase 3e); the
     # device time of each pass comes from the profiler
@@ -1897,7 +1955,7 @@ def phases() -> int:
 
     # -- 3. the main path, through the public API --------------------------------
     print("main path (keygen, encode, encrypt, ctx.mul, decrypt, decode):")
-    mul_kernels = ("modops", "ntt", "fused_ks", "fused_moddown")
+    mul_kernels = ("modops", "ntt", "fused_ks", "fused_moddown", "fused_rescale")
     main_launches, keysets, mul_ctxs = {}, {}, {}
     for name in ("matmul", "lstm"):
         p = P.workload_params(name)
@@ -1934,8 +1992,8 @@ def phases() -> int:
             problems.append(f"decode error {err} ≥ {ref['max_err']}")
         if not (torch.equal(again.c0, out.c0) and torch.equal(again.c1, out.c1)):
             problems.append("a second ctx.mul gave other bytes")
-        if dict(counts) != FUSED_MUL_DISPATCHES:
-            problems.append(f"dispatches {dict(counts)} != {FUSED_MUL_DISPATCHES}")
+        if dict(counts) != fused_rescale_counts(FUSED_MUL_DISPATCHES, 1):
+            problems.append(f"dispatches {dict(counts)} != {fused_rescale_counts(FUSED_MUL_DISPATCHES, 1)}")
         if mul_launches != launches_of(counts):
             problems.append(f"kernel launches {mul_launches} != dispatches {launches_of(counts)}")
         if min(main_launches[name][k] for k in mul_kernels) < 1:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.modops import ops as mo
+from repro_torch.kernels.rescale import ops as rescale_ops
 from repro_torch.kernels.tables import table
 from repro_torch.obs.spans import span
 
@@ -268,11 +269,25 @@ def rescale_tables(q_last: int, qs_rem: tuple[int, ...], device: torch.device):
 
 
 def _rescale(ctx, ct: Ciphertext) -> Ciphertext:
-    """Divide by q_ℓ and drop a level (eval-domain RNS rescale)."""
+    """Divide by q_ℓ and drop a level (eval-domain RNS rescale).
+
+    Under the fused pipeline both components are one ``fused_rescale`` call
+    (an ``fhe.rescale.fused`` span) that records the reference's instructions
+    in its order; the staged pipeline runs the reference's composition."""
     params = ctx.params
     lv = ct.level
     assert lv >= 1, "cannot rescale at level 0"
     q_last = int(params.q_primes[lv])
+    if ctx.plan_fused:
+        with span("fhe.rescale"):
+            for _ in range(2):
+                trace.record("INTT", params.n, 1)
+                trace.record("NTT", params.n, lv)
+                trace.record("PSUB", params.n, lv)
+                trace.record("PMULT", params.n, lv)
+            with span("fhe.rescale.fused"):
+                c0, c1 = rescale_ops.rescale(ct.c0, ct.c1, params, lv)
+            return Ciphertext(c0=c0, c1=c1, level=lv - 1, scale=ct.scale / q_last)
     qs_rem = _qs(params, lv - 1)
     q_rem, qinv_t = rescale_tables(q_last, qs_rem, ct.c0.device)
 

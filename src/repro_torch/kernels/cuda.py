@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("modops.cu", "ntt.cu", "fusedks.cu", "bconv.cu", "hoistrot.cu", "bsgsmac.cu")
+SOURCES = ("modops.cu", "ntt.cu", "fusedks.cu", "bconv.cu", "hoistrot.cu", "bsgsmac.cu", "rescale.cu")
 
 
 def _nvcc() -> str:

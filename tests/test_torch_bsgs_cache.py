@@ -192,7 +192,8 @@ def test_hit_drops_the_ntt_dispatches_under_the_fused_pipeline(setup):
     with T_dispatch.count_dispatches() as hit:
         second = tctx.apply_bsgs(s.tct, plan)
     assert _same(first, second)
-    assert "hoistmac" in miss and hit == {**miss, "ntt": miss["ntt"] - len(DIAGS)}
+    want = {**miss, "ntt": miss["ntt"] - len(DIAGS)}
+    assert "hoistmac" in miss and hit == {k: v for k, v in want.items() if v}
 
 
 def test_other_levels_and_scales_keep_plaintexts_of_their_own(setup):

@@ -13,6 +13,7 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import reference_rescale
 import torch
 
 from repro.fhe import keys as R_K
@@ -132,13 +133,15 @@ def test_mul_bit_identical_with_equal_trace_and_dispatches(pair, backend):
     assert np.max(np.abs(tctx.decrypt_decode(out) - z * z)) < 5e-4
     # the reference at the same backend, where it runs the same pipeline on the CPU
     rbk = {"auto": "ref"}.get(backend, backend)
-    with R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
+    with reference_rescale.track() as marks, R_trace.capture_trace() as rt, R_dispatch.count_dispatches() as rc:
         rctx.with_policy(backend=rbk).mul(rct, rct)
     assert _stream(tt) == _stream(rt)
-    assert tc == rc
+    assert marks.count == 1
+    assert tc == (marks.counts(rc) if tctx.plan_fused else rc)
     beta = tp.beta(tp.L)
     ks = 4 if tctx.pipeline == "fused" else 7 * beta + 13
-    assert T_dispatch.total(tc) == ks + 4 + 1 + 2 + 2 * 4  # products, d1, outputs, rescale
+    one = reference_rescale.port_counts(reference_rescale.ONE, 1) if tctx.plan_fused else reference_rescale.ONE
+    assert T_dispatch.total(tc) == ks + 4 + 1 + 2 + T_dispatch.total(one)  # products, d1, outputs, rescale
 
 
 def test_square_rescale_and_additive_ops_match(pair):
@@ -328,7 +331,7 @@ def test_matmul_preset_full_width_matches_reference_digest():
     ta = tctx.encrypt(tctx.encode(z))
     with T_dispatch.count_dispatches() as c:
         tout = tctx.mul(ta, ta)
-    assert dict(c) == chip_smoke.FUSED_MUL_DISPATCHES
+    assert dict(c) == reference_rescale.port_counts(chip_smoke.FUSED_MUL_DISPATCHES, 1)
     tdigest = hashlib.sha256(tout.c0.numpy().astype("<u4").tobytes() + tout.c1.numpy().astype("<u4").tobytes())
     assert tdigest.hexdigest() == rdigest
     assert np.max(np.abs(tctx.decrypt_decode(tout) - z * z)) < chip_smoke.REFERENCE[name]["max_err"]

@@ -244,6 +244,57 @@ def test_bsgs_mac_kernel_refuses_what_it_does_not_take(card):
     assert bmops.KERNEL.launches == before
 
 
+def _rescale_operands(p, level, seed, device):
+    """c0, c1 at ``level`` of ``p``: seeded residues, each dropped limb the NTT of
+    coefficients with 0, ⌊q_ℓ/2⌋, ⌊q_ℓ/2⌋ + 1 and q_ℓ − 1 planted among seeded
+    ones, so both branches of the centring run."""
+    qs = p.q_primes[: level + 1]
+    q_last = qs[-1]
+    out = []
+    for c in range(2):
+        x = _residues((level + 1, p.n), qs, seed + c, device)
+        coeff = _residues((1, p.n), (q_last,), seed + 2 + c, device)
+        coeff[0, :4] = torch.tensor([0, q_last // 2, q_last // 2 + 1, q_last - 1], dtype=torch.int32)
+        x[level:] = nref.ntt_fwd_ref(coeff, poly.plan_for(p, (level,)))
+        out.append(x)
+    return out
+
+
+# the rescale's kernel at the chains of the lstm, logreg and packed_bootstrap presets,
+# at N = 2^16 (the presets) and N = 2^13 (the same chains; lola_mnist_plain's ring)
+@pytest.mark.parametrize("logn", [13, 16])
+@pytest.mark.parametrize("name", ["lstm", "logreg", "packed_bootstrap"])
+def test_fused_rescale_kernel_matches_plain(card, name, logn):
+    from repro_torch.kernels.rescale import ops as rsops
+    from repro_torch.kernels.rescale import ref as rsref
+
+    p = P.workload_params(name)
+    if logn != p.n.bit_length() - 1:
+        p = P.make_params(1 << logn, p.L, p.dnum, check_security=False)
+    for level in sorted({p.L, p.L - 1, p.L // 2, 1}):
+        c0, c1 = _rescale_operands(p, level, level, card)
+        before = rsops.KERNEL.launches
+        got = rsops.rescale(c0, c1, p, level)
+        torch.cuda.synchronize()
+        assert rsops.KERNEL.launches == before + 1
+        assert [g.shape for g in got] == [(level, p.n)] * 2
+        assert got[0].data_ptr() != got[1].data_ptr() and all(g.is_contiguous() for g in got)
+        want = rsref.rescale_ref(c0, c1, p, level)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), level
+
+
+def test_fused_rescale_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.rescale import ops as rsops
+
+    p = P.workload_params("lola_mnist_plain")
+    c0, c1 = _rescale_operands(p, 3, 0, card)
+    before = rsops.KERNEL.launches
+    for bad in ((c0, c1.cpu(), 3), (c0, c1[:3], 3), (c0, c1, 2), (c0.long(), c1.long(), 3), (c0[:1], c1[:1], 0)):
+        with pytest.raises((ValueError, TypeError)):
+            rsops.rescale(bad[0], bad[1], p, bad[2])
+    assert rsops.KERNEL.launches == before
+
+
 def test_staged_pipeline_and_rotations_on_the_card_equal_the_cpu(card):
     p = P.make_params(1 << 9, 5, 2, check_security=False)
     z = np.random.default_rng(0).normal(size=p.slots) * 0.4

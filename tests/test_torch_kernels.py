@@ -32,6 +32,7 @@ from repro_torch.kernels.hoistrot import ops as T_hops
 from repro_torch.kernels.hoistrot import ref as T_hoistref
 from repro_torch.kernels.modops import ops as T_mo
 from repro_torch.kernels.ntt import ops as T_nttops
+from repro_torch.kernels.rescale import ops as T_rescale
 
 torch.set_num_threads(1)
 
@@ -100,9 +101,11 @@ def test_wrappers_never_fall_back_off_the_cpu():
     meta = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         T_bsgsmac.bsgs_mac(meta(3, 2, 256), meta(2, 2, 2, 256), meta(3), meta(3), qs)
+    with pytest.raises(ValueError, match="CUDA"):
+        T_rescale.rescale(meta(3, 256), meta(3, 256), p, 2)
     assert (T_mo.KERNEL.launches, T_nttops.KERNEL.launches) == launches
     assert (T_bconv.KERNEL.launches, T_hops.HOIST_MODUP.launches, T_hops.HOIST_MAC.launches) == (0, 0, 0)
-    assert T_bsgsmac.KERNEL.launches == 0
+    assert T_bsgsmac.KERNEL.launches == T_rescale.KERNEL.launches == 0
 
 
 def test_u32_tensor_keeps_bit_patterns():

@@ -17,6 +17,7 @@ import pathlib
 import numpy as np
 import pytest
 import reference_bsgs
+import reference_rescale
 import torch
 
 from repro.fhe import keys as R_K
@@ -175,10 +176,11 @@ def test_apply_bsgs_fused_pipeline_matches_reference(bset, hoisting):
     rctx = b.rctx.with_policy(backend="fused", hoisting=hoisting)
     with T_dispatch.count_dispatches() as tc:
         got = tctx.apply_bsgs(b.tct, _fresh(b.tplan))
-    with R_dispatch.count_dispatches() as rc:
+    with reference_rescale.track() as marks, R_dispatch.count_dispatches() as rc:
         want = rctx.apply_bsgs(b.rct, b.rplan)
     _ct_eq(got, want)
-    assert tc == reference_bsgs.port_counts(rc, [b.rplan])
+    assert marks.count == 1
+    assert tc == reference_bsgs.port_counts(marks.counts(rc), [b.rplan])
     assert ("hoistmac" in tc) == (hoisting == "always")
 
 
@@ -211,10 +213,10 @@ def test_real_and_imag_part_match_reference(bset, backend):
     for name in ("real_part", "imag_part"):
         with T_dispatch.count_dispatches() as tc:
             got = getattr(tctx, name)(tct)
-        with R_dispatch.count_dispatches() as rc:
+        with reference_rescale.track() as marks, R_dispatch.count_dispatches() as rc:
             want = getattr(rctx, name)(rct)
         _ct_eq(got, want)
-        assert tc == rc
+        assert tc == (marks.counts(rc) if tctx.plan_fused else rc)
         part = w.real if name == "real_part" else w.imag
         np.testing.assert_allclose(tctx.decrypt_decode(got).real, part, atol=2e-2)
 

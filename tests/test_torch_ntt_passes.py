@@ -11,7 +11,9 @@ pieces: ``fused_ks``, ``fused_moddown`` and ``hoist_modup``, each pass A
 is read from ``kernel_tables`` / ``ks_tables`` / ``moddown_tables``, the
 tensors the kernels are given.  The model must equal the plain versions (and
 the reference package's) exactly; the kernels are held against the same plain
-versions on the card (``tests/test_torch_gpu.py``).
+versions on the card (``tests/test_torch_gpu.py``).  Last, ``fused_rescale``
+(``csrc/rescale.cu``): the inverse passes of the dropped limbs, then a pass A
+whose load is the centred one-limb conversion, and its pass B.
 """
 
 import jax.numpy as jnp
@@ -20,7 +22,10 @@ import pytest
 import torch
 
 from repro.fhe import ntt as R_ntt
+from repro.fhe import ops as R_ops
 from repro.fhe import params as R_P
+from repro.fhe.context import ExecPolicy as R_Policy
+from repro.fhe.context import FheContext as R_Ctx
 from repro.kernels.fusedks import ref as R_fref
 from repro.kernels.hoistrot import ref as R_href
 from repro.kernels.ntt import ref as R_nttref
@@ -32,6 +37,8 @@ from repro_torch.kernels.fusedks import ref as T_fref
 from repro_torch.kernels.hoistrot import ref as T_href
 from repro_torch.kernels.ntt import ops as T_nttops
 from repro_torch.kernels.ntt import ref as T_nttref
+from repro_torch.kernels.rescale import ops as T_rsops
+from repro_torch.kernels.rescale import ref as T_rsref
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -301,3 +308,40 @@ def test_two_pass_mod_down_equals_the_plain_and_reference_versions(dnum, L, n_ac
         got = two_pass_mod_down(pc, qpart, tp, level)
         assert torch.equal(got, T_fref.mod_down_digits_ref(pc, qpart, tp, level))
         _eq_reference(got, R_fref.mod_down_digits_ref(jnp.asarray(pc.numpy()), jnp.asarray(qpart.numpy()), rp, level))
+
+
+def two_pass_rescale(c0, c1, params, level):
+    """rescale.cu's four kernels as they run: the inverse passes over the two
+    dropped limbs, then pass A of row c·l + e (the centred conversion folded
+    into the twist's montmul: v, or v + (q_e − q_ℓ mod q_e) above ⌊q_ℓ/2⌋)
+    and pass B's store (c[e] − ŷ)·q_ℓ⁻¹."""
+    t = {k: _u32(v) for k, v in T_rsops.tables(params, level, CPU).items()}
+    n = params.n
+    q_last, _, half = t["last"].tolist()
+    lmod2, lmod3 = Mod(t["last"][:1], 2), Mod(t["last"][:1], 3)
+    mod2, mod3 = Mod(t["q"], 2), Mod(t["q"], 3)
+    out = []
+    for c in (c0, c1):
+        y = pass1(_u32(c[level:]), None, t["winv_l"], t["twinv_l"], lmod3, n, inverse=True)
+        v = lmod2.montmul(row_ntt_pass(y, t["winv_l"], lmod3, n), t["twist_l"])  # (1, N) coefficients
+        assert int(v.max()) < q_last
+        a = torch.where(v > half, v + t["neg"][:, None], v)  # (l, N), each below 2^32
+        assert int(a.max()) < 1 << 32
+        yhat = row_ntt_pass(pass1(a, t["psi"], t["roots"], t["tw"], mod3, n, inverse=False), t["roots"], mod3, n)
+        out.append(mod2.montmul((_u32(c[:level]) - yhat) % mod2.q, t["qlinv"][:, None]))
+    return torch.stack(out).int()
+
+
+@pytest.mark.parametrize("logn, L, dnum", [(8, 6, 2), (9, 13, 2), (10, 5, 1)])
+def test_two_pass_rescale_equals_the_plain_and_reference_versions(logn, L, dnum):
+    tp = T_P.make_params(1 << logn, L, dnum, check_security=False)
+    rp = R_P.make_params(1 << logn, L, dnum, check_security=False)
+    rctx = R_Ctx(params=rp, policy=R_Policy(backend="ref"))
+    for level in sorted({L, L // 2, 1}):
+        qs = tp.q_primes[: level + 1]
+        c0, c1 = (_residues((level + 1, tp.n), qs, 60 + level + k) for k in range(2))
+        got = two_pass_rescale(c0, c1, tp, level)
+        assert torch.equal(got, torch.stack(T_rsref.rescale_ref(c0, c1, tp, level)))
+        ref = R_ops._rescale(rctx, R_ops.Ciphertext(c0=jnp.asarray(c0.numpy()), c1=jnp.asarray(c1.numpy()),
+                                                    level=level, scale=2.0 ** 40))
+        _eq_reference(got, np.stack([np.asarray(ref.c0), np.asarray(ref.c1)]))

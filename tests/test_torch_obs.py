@@ -17,6 +17,7 @@ import types
 
 import numpy as np
 import pytest
+import reference_rescale
 import torch
 
 from repro import obs as R_obs
@@ -252,14 +253,18 @@ def test_traced_mul_slices_are_the_dispatches(mul_pair, backend):
     assert {op: names.count(op) for op in counts} == counts
     assert [e["ts"] for e in tr.events] == [float(i) for i in range(len(names))]
     assert validate_chrome_trace(to_chrome_trace(tr)) == []
-    if backend == "fused":
-        # the slice names do not depend on the ring: chip_smoke.py's digest, taken
-        # at lstm, holds here at n = 2^9
-        assert len(names) == SMOKE.TRACED_MUL["slices"] == 19
-        assert SMOKE.names_sha256(names) == SMOKE.TRACED_MUL["names_sha256"]
-    # the reference's traced multiply at the same backend
+    # the reference's traced multiply at the same backend; under the fused
+    # pipeline the port's rescale is one dispatch (reference_rescale)
     rtr = R_obs.Tracer()
-    rctx.with_policy(rctx.policy.replace(backend=backend).traced(rtr)).mul(rct, rct)
-    assert names == [e["name"] for e in rtr.events]
-    assert hashlib.sha256("\n".join(names).encode()).hexdigest() == \
-        hashlib.sha256("\n".join(e["name"] for e in rtr.events).encode()).hexdigest()
+    with reference_rescale.track() as marks:
+        rctx.with_policy(rctx.policy.replace(backend=backend).traced(rtr)).mul(rct, rct)
+    rnames = [e["name"] for e in rtr.events]
+    want = marks.names(rnames) if backend == "fused" else rnames
+    assert marks.count == 1 and names == want
+    assert hashlib.sha256("\n".join(names).encode()).hexdigest() == hashlib.sha256("\n".join(want).encode()).hexdigest()
+    if backend == "fused":
+        # the slice names do not depend on the ring: chip_smoke.py's digest of the
+        # reference's, taken at lstm, holds here at n = 2^9, and so do the port's
+        assert len(rnames) == SMOKE.TRACED_MUL["slices"] == 19
+        assert SMOKE.names_sha256(rnames) == SMOKE.TRACED_MUL["names_sha256"]
+        assert names == SMOKE.traced_mul_port_names()

@@ -28,6 +28,7 @@ from repro_torch.kernels import tables
 from repro_torch.kernels.bconv import ops as T_bops
 from repro_torch.kernels.fusedks import ops as T_fops
 from repro_torch.kernels.modops import ops as T_mo
+from repro_torch.kernels.rescale import ops as T_rsops
 
 torch.set_num_threads(1)
 
@@ -140,6 +141,7 @@ def _every_table(ctx):
         c.add_const(c.rotate(c.mul(a, a), 1), 0.5)
     T_fops.ks_tables(p, p.L, cpu)
     T_fops.moddown_tables(p, p.L, cpu)
+    T_rsops.tables(p, p.L, cpu)
     T_mo.constants(p.q_primes, cpu)
     _, _, dst, _, w = T_rns.digit_tables(p, p.L, 0)
     T_bops.device_table(np.asarray(w, np.uint64).tobytes(), len(w), dst, cpu)
