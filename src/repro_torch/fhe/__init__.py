@@ -7,15 +7,15 @@ Public API: ``FheContext`` and ``ExecPolicy`` (``repro_torch.fhe.context``;
 params with ``plain_modulus`` set make a BGV context), and the modules
 ``linear`` (BSGS planning), ``polyeval`` (Chebyshev evaluation),
 ``bootstrap`` (``build_context``), ``lstm`` (one LSTM step's plan), ``logreg``
-(a period of logistic-regression training) and ``bgv`` (its ciphertext
-types), exported lazily so that ``repro_torch.fhe.params`` and friends stay
+(a period of logistic-regression training), ``resnet`` (a ResNet-20 basic
+block's plan) and ``bgv`` (its ciphertext types), exported lazily so that ``repro_torch.fhe.params`` and friends stay
 cheap.
 """
 
 import importlib
 
 _CONTEXT_EXPORTS = ("FheContext", "ExecPolicy")
-_LAZY_MODULES = ("linear", "polyeval", "bootstrap", "bgv", "lstm", "logreg")
+_LAZY_MODULES = ("linear", "polyeval", "bootstrap", "bgv", "lstm", "logreg", "resnet")
 
 
 def __getattr__(name):

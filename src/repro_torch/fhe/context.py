@@ -13,7 +13,7 @@
 
 Quick use::
 
-    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, logreg, lstm, keys as K, params as P
+    from repro_torch.fhe import FheContext, ExecPolicy, bootstrap, logreg, lstm, resnet, keys as K, params as P
 
     p = P.workload_params("matmul")
     ctx = FheContext(params=p, keys=K.full_keyset(p, seed=0, rotations=(1, 2)))
@@ -25,6 +25,7 @@ Quick use::
     y = ctx.eval_poly(ct, coeffs)                 # Σ c_i·T_i(x), Chebyshev basis
     h1, c1 = ctx.lstm_step(lstm.build_plan(W, U, b, p), x, h0, c0)   # one LSTM step
     w4, v4 = ctx.logreg_step(logreg.build_plan(p, 256, 256, rates, momenta), zs, w0, v0)  # HELR training
+    y = ctx.resnet_block(resnet.build_plan(w1, b1, w2, b2, p, 32, 32), x)  # one ResNet-20 basic block
 
     sp = P.workload_params("psi")                 # plain_modulus set: a BGV context
     bgv = FheContext(params=sp, keys=K.full_keyset(sp, seed=0))
@@ -48,7 +49,7 @@ from repro_torch.kernels import dispatch
 
 from . import bgv as _bgv
 from . import bootstrap as _bootstrap
-from . import keyswitch, linear, logreg, lstm, ops, polyeval
+from . import keyswitch, linear, logreg, lstm, ops, polyeval, resnet
 from .keys import KeySet, SwitchingKey
 from .params import CkksParams
 
@@ -405,6 +406,13 @@ class FheContext:
         """(w_k, v_k) after one period of encrypted logistic-regression training:
         k Nesterov iterations on the batch's ciphertexts zs (``repro_torch.fhe.logreg``)."""
         return logreg._logreg_step(self, plan, zs, w, v)
+
+    @_hooked
+    def resnet_block(self, plan: resnet.ResnetBlockPlan, x):
+        """y/B of one ResNet-20 basic block: two convolutions as BSGS matvecs
+        and two composite-polynomial ReLUs around an identity shortcut
+        (``repro_torch.fhe.resnet``)."""
+        return resnet._resnet_block(self, plan, x)
 
     # -- bootstrapping -------------------------------------------------------
 
